@@ -1,0 +1,19 @@
+"""repro_torch: the PyTorch/CUDA port of ``repro`` (error-controlled
+progressive retrieval of scientific data under derivable QoIs).
+
+The JAX package ``repro`` is the reference; this package mirrors its layout
+module for module and never imports it (or ``jax``).  The slice ported so far
+is the paper's main pipeline:
+
+    archive = refactor_variables(fields, method="hb")        # Algorithm 1
+    session = archive.open()
+    result = retrieve_qoi_controlled(session, requests)      # Algorithms 2-4
+
+The codec's two hot loops (bitplane pack on encode, bitplane decode on
+retrieval) are hand-written CUDA kernels for Hopper (``kernels/csrc``); the
+entropy stage stays on the host, as in ``repro``.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without CUDA they raise instead of falling back.
+"""
+__version__ = "0.1.0"

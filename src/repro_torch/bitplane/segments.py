@@ -1,0 +1,142 @@
+"""Progressive segment streams: incremental per-group plane retrieval state.
+
+Counterpart of ``repro/bitplane/segments.py``.  A LevelStream tracks how
+many planes of one coefficient group have been moved (bytes are charged
+once per plane) and keeps the group's decode state — the int64 magnitude
+state and the float64 values — on its device between requests.  Newly
+fetched planes are inflated on the host at fetch time and deferred; the
+next ``values()`` flushes them in ONE fused decode launch that ORs them
+into the device state, signs and scales.  Decoded values depend only on the
+final plane count, whatever the fetch schedule.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.bitplane.encoder import (
+    LevelBitplanes,
+    PlaneGroupMeta,
+    inflate_planes,
+    plane_bound,
+    sign_plane_bytes,
+)
+from repro_torch.device import F64
+from repro_torch.kernels import ops
+
+
+class PlaneSource:
+    """Access to one coefficient group's encoded segments: ``meta`` is
+    always resident, payload bytes come on demand."""
+
+    meta: PlaneGroupMeta
+
+    def planes(self, start: int, stop: int) -> Sequence[bytes]:
+        raise NotImplementedError
+
+    def signs(self) -> bytes:
+        raise NotImplementedError
+
+
+class InMemoryPlaneSource(PlaneSource):
+    """Planes held by a `LevelBitplanes` in host memory."""
+
+    def __init__(self, lbp: LevelBitplanes):
+        self.lbp = lbp
+        self.meta = lbp.meta()
+
+    def planes(self, start: int, stop: int) -> Sequence[bytes]:
+        return self.lbp.planes[start:stop]
+
+    def signs(self) -> bytes:
+        return self.lbp.signs
+
+
+class LevelStream:
+    """Progressive reader state over one group's PlaneSource, decoding on
+    ``device``."""
+
+    def __init__(self, source: Union[PlaneSource, LevelBitplanes],
+                 device: torch.device):
+        if isinstance(source, LevelBitplanes):
+            source = InMemoryPlaneSource(source)
+        self.source = source
+        self.meta = source.meta
+        self.device = device
+        self.fetched = 0
+        self.bytes_fetched = 0
+        # full-word-length (W*32,) int64 magnitude state on the device
+        self._mag: Optional[torch.Tensor] = None
+        self._signs: Optional[bytes] = None
+        self._sign_bytes: Optional[np.ndarray] = None
+        self._values: Optional[torch.Tensor] = None
+        # planes fetched since the last flush, inflated on the host
+        self._pending_words: list = []
+        self._pending_shifts: list = []
+
+    def fetch_to_planes(self, k: int) -> int:
+        """Retrieve planes up to k (MSB-first). Returns newly moved bytes."""
+        meta = self.meta
+        k = int(np.clip(k, 0, meta.nbits))
+        if meta.exponent is None or k <= self.fetched:
+            return 0
+        if self.fetched == 0:
+            self._signs = self.source.signs()
+        blobs = self.source.planes(self.fetched, k)
+        # signs ride with the first plane
+        new_bytes = sum(meta.plane_sizes[self.fetched:k])
+        if self.fetched == 0:
+            new_bytes += meta.sign_size
+        words, shifts = inflate_planes(meta.count, meta.nbits, blobs,
+                                       self.fetched)
+        self._pending_words.append(words)
+        self._pending_shifts.append(shifts)
+        self.fetched = k
+        self.bytes_fetched += new_bytes
+        self._values = None
+        return new_bytes
+
+    def _decoded_signs(self) -> np.ndarray:
+        if self._sign_bytes is None:
+            self._sign_bytes = sign_plane_bytes(self.meta.count, self._signs)
+        return self._sign_bytes
+
+    def flush_submit(self):
+        """Phase 1 of the deferred flush: launch the fused decode of every
+        pending plane.  Returns the ``(mag, values)`` device tensors for
+        ``flush_collect``, or None when nothing is pending.  Split in two so
+        a caller draining many streams can launch them all before adopting
+        any result."""
+        if not self._pending_words:
+            return None
+        meta = self.meta
+        words = np.concatenate(self._pending_words, axis=0)
+        shifts = np.concatenate(self._pending_shifts)
+        self._pending_words.clear()
+        self._pending_shifts.clear()
+        scale = np.float64(2.0) ** (meta.exponent - meta.nbits)
+        return ops.decode_values_fused(words, shifts, self._mag,
+                                       self._decoded_signs(), float(scale),
+                                       meta.count, self.device)
+
+    def flush_collect(self, ticket) -> None:
+        """Phase 2: adopt the decode result as the stream's state."""
+        if ticket is None:
+            return
+        self._mag, self._values = ticket
+
+    def values(self) -> torch.Tensor:
+        """Decoded float64 values (count,) on the device."""
+        if self._values is None:
+            if self.fetched == 0:
+                self._values = torch.zeros(self.meta.count, dtype=F64,
+                                           device=self.device)
+            else:
+                self.flush_collect(self.flush_submit())
+        return self._values
+
+    @property
+    def bound(self) -> float:
+        return plane_bound(self.meta, self.fetched)

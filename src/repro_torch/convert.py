@@ -1,0 +1,86 @@
+"""Carry an archive across as plain Python and numpy data.
+
+:func:`archive_to_arrays` flattens a port :class:`Archive` into a dict of
+ints, floats, tuples, bytes and numpy arrays; :func:`archive_from_arrays`
+builds an Archive back from such a dict, on a device.  Any producer of the
+same layout — the JAX package's archive included — can hand its archive to
+the port this way, so both packages retrieve from the very same bytes.
+
+Layout::
+
+    {"method": "hb",
+     "shapes": {name: tuple}, "ranges": {name: float},
+     "masks": {name: {"mask": bool array, "values": float64 array}},
+     "variables": {name: {"orig_shape": tuple, "padded_shape": tuple,
+                          "levels": int, "group_indices": [int64 array],
+                          "groups": [{"count": int, "exponent": int | None,
+                                      "nbits": int, "planes": [bytes],
+                                      "signs": bytes}]}}}
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+from repro_torch.bitplane.encoder import LevelBitplanes
+from repro_torch.core.masks import OutlierMask
+from repro_torch.core.refactor import METHODS, Archive, BitplaneVarArchive
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def archive_from_arrays(d: Dict[str, Any], device: DeviceLike = None
+                        ) -> Archive:
+    """Build a port Archive from the plain layout; sessions on it decode on
+    ``device`` (default CUDA; raises without it unless ``device="cpu"``)."""
+    if d["method"] not in METHODS:
+        raise ValueError(f"archive method {d['method']!r} is not ported; "
+                         f"expected one of {METHODS}")
+    dev = resolve_device(device)
+    variables = {}
+    for name, v in d["variables"].items():
+        groups = [LevelBitplanes(count=int(g["count"]),
+                                 exponent=None if g["exponent"] is None
+                                 else int(g["exponent"]),
+                                 nbits=int(g["nbits"]),
+                                 planes=[bytes(p) for p in g["planes"]],
+                                 plane_raw_bits=int(g["count"]),
+                                 signs=bytes(g["signs"]))
+                  for g in v["groups"]]
+        variables[name] = BitplaneVarArchive(
+            method=d["method"], orig_shape=tuple(v["orig_shape"]),
+            padded_shape=tuple(v["padded_shape"]), levels=int(v["levels"]),
+            groups=groups,
+            group_indices=[np.asarray(i, dtype=np.int64)
+                           for i in v["group_indices"]])
+    masks = {name: OutlierMask(mask=np.asarray(m["mask"], dtype=bool),
+                               values=np.asarray(m["values"],
+                                                 dtype=np.float64))
+             for name, m in d["masks"].items()}
+    return Archive(method=d["method"], variables=variables, masks=masks,
+                   ranges={k: float(r) for k, r in d["ranges"].items()},
+                   shapes={k: tuple(s) for k, s in d["shapes"].items()},
+                   device=dev)
+
+
+def archive_to_arrays(archive) -> Dict[str, Any]:
+    """Inverse of :func:`archive_from_arrays` (the device is not part of
+    the layout)."""
+    return {
+        "method": archive.method,
+        "shapes": {k: tuple(s) for k, s in archive.shapes.items()},
+        "ranges": {k: float(r) for k, r in archive.ranges.items()},
+        "masks": {k: {"mask": np.asarray(m.mask),
+                      "values": np.asarray(m.values)}
+                  for k, m in archive.masks.items()},
+        "variables": {
+            name: {"orig_shape": tuple(v.orig_shape),
+                   "padded_shape": tuple(v.padded_shape),
+                   "levels": int(v.levels),
+                   "group_indices": [np.asarray(i)
+                                     for i in v.group_indices],
+                   "groups": [{"count": g.count, "exponent": g.exponent,
+                               "nbits": g.nbits, "planes": list(g.planes),
+                               "signs": g.signs} for g in v.groups]}
+            for name, v in archive.variables.items()},
+    }

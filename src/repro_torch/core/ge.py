@@ -1,0 +1,77 @@
+"""The GE CFD case-study QoIs, paper Eq. (1)-(6), built from derivable bases
+(copy of ``repro/core/ge.py`` over the port's expression tree).
+
+Variables: velocity Vx, Vy, Vz, pressure P, density D (paper §III-A).
+The decompositions mirror §IV-D: e.g. PT = P · (1 + γ/2·Mach²)^3.5 becomes
+Prod(P, frac_pow(...)) with frac_pow composed as x³·√x.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.core.qoi import (
+    Expr,
+    Prod,
+    Quot,
+    Radical,
+    Sqrt,
+    Var,
+    frac_pow,
+    magnitude,
+    scale,
+    square,
+)
+
+# Physical constants (paper §III-A).
+R = 287.1
+GAMMA = 1.4
+MI = 3.5
+MU_R = 1.716e-5
+T_R = 273.15
+S = 110.4
+
+
+def v_total(tight: bool = False) -> Expr:
+    """Eq. (1): Vtotal = sqrt(Vx² + Vy² + Vz²)."""
+    return magnitude([Var("Vx"), Var("Vy"), Var("Vz")], tight=tight)
+
+
+def temperature() -> Expr:
+    """Eq. (2): T = P / (D·R)."""
+    return Quot(Var("P"), scale(Var("D"), R))
+
+
+def sound_speed(tight: bool = False) -> Expr:
+    """Eq. (3): C = sqrt(γ·R·T)."""
+    return Sqrt(scale(temperature(), GAMMA * R), tight=tight)
+
+
+def mach(tight: bool = False) -> Expr:
+    """Eq. (4): Mach = Vtotal / C."""
+    return Quot(v_total(tight=tight), sound_speed(tight=tight))
+
+
+def total_pressure(tight: bool = False) -> Expr:
+    """Eq. (5): PT = P · (1 + γ/2 · Mach²)^3.5."""
+    inner = scale(square(mach(tight=tight)), GAMMA / 2.0, const=1.0)
+    return Prod(Var("P"), frac_pow(inner, MI, tight=tight))
+
+
+def viscosity(tight: bool = False) -> Expr:
+    """Eq. (6): mu = mu_r (T/Tr)^1.5 (Tr+S)/(T+S)
+              = [mu_r (Tr+S) / Tr^1.5] · T^1.5 · 1/(T+S)."""
+    t = temperature()
+    const = MU_R * (T_R + S) / (T_R ** 1.5)
+    return scale(Prod(frac_pow(t, 1.5, tight=tight), Radical(t, c=S)), const)
+
+
+def all_qois(tight: bool = False) -> Dict[str, Expr]:
+    """The six GE QoIs keyed by short name (paper Table II examples)."""
+    return {
+        "VTOT": v_total(tight=tight),
+        "T": temperature(),
+        "C": sound_speed(tight=tight),
+        "Mach": mach(tight=tight),
+        "PT": total_pressure(tight=tight),
+        "mu": viscosity(tight=tight),
+    }

@@ -1,0 +1,89 @@
+"""Codec entry points over the kernel wrappers.
+
+Counterpart of ``repro/kernels/ops.py`` for the two kernels on the main
+path.  Unlike the JAX module there is one decode path: on a CUDA device
+every call launches the CUDA kernel, whatever the group size, and on the CPU
+it runs the kernel's plain version.  The kernel takes a run-time plane
+count and 64-bit shifts, so the JAX module's plane padding (which bounds its
+jit cache) and hi/lo uint32 split have no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.bitplane_pack import bitplane_pack
+from repro_torch.kernels.bitplane_unpack import bitplane_unpack
+
+
+def encode_magnitude_planes(c: torch.Tensor, scale: float,
+                            nbits: int) -> torch.Tensor:
+    """(N,) float64 coefficients -> (nbits, ceil32(N)) int32 packed planes
+    of mag = min(floor(|c|*scale), 2^nbits - 1), MSB plane first.
+    Quantization and every plane's pack are one kernel launch; the words
+    stay on ``c``'s device."""
+    return bitplane_pack(c, scale, nbits)
+
+
+def unpack_bitplanes(words: torch.Tensor, shifts: torch.Tensor,
+                     count: int) -> torch.Tensor:
+    """(P, ceil32(count)) int32 packed planes + (P,) int64 left shifts ->
+    (count,) int64: OR over planes of (unpacked bits << shift)."""
+    mag, _ = bitplane_unpack(words, shifts)
+    return mag[:count]
+
+
+def prepare_fused_decode(words: np.ndarray, shifts, state, sign_bytes,
+                         count: int, device: torch.device):
+    """Host inputs of one decode -> device tensors in the kernel's
+    full-word-length layout: ``words`` (P, W) int32 (the uint32 words
+    reinterpreted), ``shifts`` (P,) int64, ``state`` (W*32,) int64 or None,
+    ``sign_bytes`` (W*4,) uint8.  The plane words cross host -> device here,
+    once per flush; a ``state`` already on the device stays there."""
+    nwords = (int(count) + 31) // 32
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    if words.size == 0:
+        words = words.reshape(0, nwords)
+    sh = np.asarray(shifts, dtype=np.int64).reshape(-1)
+    if words.shape != (sh.shape[0], nwords):
+        raise ValueError(f"words {words.shape} do not match {sh.shape[0]} "
+                         f"shifts over {nwords} words")
+    if sh.size and (sh.min() < 0 or sh.max() > 63):
+        raise ValueError("plane shifts must be in [0, 63]")
+    w = as_words(words, device)
+    sh_t = torch.from_numpy(sh).to(device)
+    st = None
+    if state is not None:
+        st = torch.as_tensor(state, dtype=torch.int64, device=device)
+        if st.shape[0] != nwords * 32:          # count-length carry-in
+            st = torch.nn.functional.pad(st, (0, nwords * 32 - st.shape[0]))
+    sb = np.zeros(nwords * 4, dtype=np.uint8)
+    raw = np.asarray(sign_bytes, dtype=np.uint8)
+    sb[: raw.shape[0]] = raw
+    return w, sh_t, st, torch.from_numpy(sb).to(device)
+
+
+def decode_values_fused(words: np.ndarray, shifts, state, sign_bytes,
+                        scale: float, count: int, device: torch.device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed plane words -> signed float64 values in one kernel launch.
+
+    ``words`` (P, ceil32(count)) uint32, ``shifts`` per-plane left shifts,
+    ``state`` an optional int64 magnitude carry-in (a previous call's
+    full-length result, or a (count,) tensor), ``sign_bytes`` the decoded
+    packbits sign plane, ``scale`` = 2^(E-B).  Returns device tensors
+    ``(mag_full, values)``: ``mag_full`` (W*32,) is the state to feed back,
+    ``values`` is sliced to ``count``."""
+    w, sh, st, sb = prepare_fused_decode(words, shifts, state, sign_bytes,
+                                         count, device)
+    mag, vals = bitplane_unpack(w, sh, st, sb, scale)
+    return mag, vals[:count]
+
+
+def as_words(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(P, W) uint32 host words -> int32 device tensor (same bits)."""
+    return torch.from_numpy(
+        np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    ).to(device)

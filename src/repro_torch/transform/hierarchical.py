@@ -1,0 +1,193 @@
+"""PMGARD-HB multilevel decomposition (paper §V-B), on tensors.
+
+Counterpart of ``repro/transform/hierarchical.py`` for the hb method.  The
+grid helpers are numpy, copied as they are; the transform runs as plain
+torch ops on the tensor's device, with the reference's op sequence kept
+exactly (``mid = 0.5 * (lo + hi)``, then ``view - pred`` / ``view + pred``,
+then ``where(mask, ...)``) and no fused ops that could contract into an FMA.
+Every op is elementwise IEEE float64, so results are bit-identical to the
+JAX package on any device.
+
+Unlike the reference's functional ``.at[].set``, the steps update a tensor
+the function owns in place; inputs are never modified.
+"""
+from __future__ import annotations
+
+import functools
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# Grid geometry (numpy, as in the reference)
+# ---------------------------------------------------------------------------
+
+
+def _pad_dim(n: int) -> int:
+    """Smallest 2^k + 1 >= n (k >= 0)."""
+    if n <= 2:
+        return 2 if n == 1 else 3  # degenerate dims get a tiny valid grid
+    k = int(np.ceil(np.log2(n - 1)))
+    return (1 << k) + 1
+
+
+def pad_to_grid(x: np.ndarray) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """Edge-replicate pad every dim to 2^k + 1. Returns (padded, orig_shape)."""
+    orig = x.shape
+    target = tuple(_pad_dim(n) for n in orig)
+    pads = tuple((0, t - n) for t, n in zip(target, orig))
+    return np.pad(x, pads, mode="edge"), orig
+
+
+def unpad(x, orig_shape: Tuple[int, ...]):
+    return x[tuple(slice(0, n) for n in orig_shape)]
+
+
+def grid_levels(shape: Tuple[int, ...], max_levels: int = 32) -> int:
+    """Number of detail levels supported by a padded (2^k+1, ...) grid."""
+    ks = []
+    for n in shape:
+        k = int(np.round(np.log2(n - 1))) if n > 2 else 0
+        ks.append(k)
+    return min(min(ks), max_levels)
+
+
+def level_map(shape: Tuple[int, ...], levels: int) -> np.ndarray:
+    """Per-node detail level: l in [0, levels) for detail nodes (finest = 0),
+    ``levels`` for base-grid nodes. Level of node i = min over dims of the
+    2-adic valuation of its coordinates, clipped to the base grid."""
+    val = np.full(shape, levels, dtype=np.int32)
+    for ax, n in enumerate(shape):
+        idx = np.arange(n)
+        v2 = np.full(n, levels, dtype=np.int32)
+        nz = idx != 0
+        v2[nz] = np.minimum(_v2(idx[nz]), levels)
+        sl = [None] * len(shape)
+        sl[ax] = slice(None)
+        val = np.minimum(val, v2[tuple(sl)])
+    return val
+
+
+def _v2(idx: np.ndarray) -> np.ndarray:
+    """2-adic valuation of positive ints, vectorised."""
+    out = np.zeros_like(idx)
+    x = idx.copy()
+    while np.any(x % 2 == 0):
+        even = x % 2 == 0
+        out[even] += 1
+        x[even] //= 2
+    return out.astype(np.int32)
+
+
+def _new_node_mask(shape: Tuple[int, ...]) -> np.ndarray:
+    """Nodes of the fine view NOT on the 2-strided coarse grid."""
+    m = np.zeros(shape, dtype=bool)
+    for ax, n in enumerate(shape):
+        odd = (np.arange(n) % 2).astype(bool)
+        sl = [None] * len(shape)
+        sl[ax] = slice(None)
+        m |= odd[tuple(sl)]
+    return m
+
+
+@functools.lru_cache(maxsize=256)
+def _node_mask(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``_new_node_mask`` on ``device``, built once per view shape (a
+    recompose from level l revisits the views of every finer level)."""
+    return torch.from_numpy(_new_node_mask(shape)).to(device)
+
+
+def _view_slices(ndim: int, stride: int):
+    return tuple(slice(None, None, stride) for _ in range(ndim))
+
+
+# ---------------------------------------------------------------------------
+# Multilinear upsampling (coarse grid -> fine grid prediction)
+# ---------------------------------------------------------------------------
+
+
+def _up_axis(c: torch.Tensor, ax: int) -> torch.Tensor:
+    """Linear-interpolate a (2m+1 -> from m+1) refinement along one axis."""
+    n = c.shape[ax]
+    out_shape = tuple(c.shape[:ax]) + (2 * n - 1,) + tuple(c.shape[ax + 1:])
+    lo = c.narrow(ax, 0, n - 1)
+    hi = c.narrow(ax, 1, n - 1)
+    mid = 0.5 * (lo + hi)
+    out = torch.zeros(out_shape, dtype=c.dtype, device=c.device)
+    even = tuple(slice(None) if i != ax else slice(0, None, 2)
+                 for i in range(c.dim()))
+    odd = tuple(slice(None) if i != ax else slice(1, None, 2)
+                for i in range(c.dim()))
+    out[even] = c
+    out[odd] = mid
+    return out
+
+
+def interp_up(coarse: torch.Tensor) -> torch.Tensor:
+    """Multilinear prediction of the fine grid from the coarse grid."""
+    out = coarse
+    for ax in range(coarse.dim()):
+        out = _up_axis(out, ax)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HB decompose / recompose
+# ---------------------------------------------------------------------------
+
+
+def decompose_hb(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """In-place-layout HB transform: detail nodes hold surpluses, base nodes
+    hold original values. Levels are independent (no cross-level coupling)."""
+    x = x.clone()
+    for l in range(levels):
+        sl = _view_slices(x.dim(), 1 << l)
+        view = x[sl]
+        pred = interp_up(view[_view_slices(x.dim(), 2)])
+        mask = _node_mask(tuple(view.shape), x.device)
+        x[sl] = torch.where(mask, view - pred, view)
+    return x
+
+
+def _recompose_steps(c: torch.Tensor, start: int) -> torch.Tensor:
+    """Recompose steps start..0 (coarse -> fine) in place on ``c``, shared
+    by every entry point so all produce bitwise-identical results."""
+    for l in range(start, -1, -1):
+        sl = _view_slices(c.dim(), 1 << l)
+        view = c[sl]
+        pred = interp_up(view[_view_slices(c.dim(), 2)])
+        mask = _node_mask(tuple(view.shape), c.device)
+        c[sl] = torch.where(mask, view + pred, view)
+    return c
+
+
+def recompose_hb(c: torch.Tensor, levels: int) -> torch.Tensor:
+    """Inverse of decompose_hb; must run coarse -> fine."""
+    return _recompose_steps(c.clone(), levels - 1)
+
+
+def recompose_hb_from(c: torch.Tensor, levels: int,
+                      start: int) -> torch.Tensor:
+    """Partial recompose: only steps start..0.  For a coefficient field
+    supported on levels <= start this is bitwise identical to the full
+    recompose (the skipped coarse steps see an all-zero view)."""
+    return _recompose_steps(c.clone(), min(start, levels - 1))
+
+
+def scatter_recompose_from(idx: torch.Tensor, vals: torch.Tensor,
+                           shape: Tuple[int, ...], levels: int,
+                           start: int) -> torch.Tensor:
+    """Scatter one level's decoded values (flat node indices ``idx``, all
+    distinct) into a zero field and partially recompose it — the reader's
+    per-level contribution, computed where ``vals`` lives."""
+    field = torch.zeros(int(np.prod(shape)), dtype=vals.dtype,
+                        device=vals.device)
+    field.index_copy_(0, idx, vals)
+    return _recompose_steps(field.reshape(shape), min(start, levels - 1))
+
+
+def hb_error_bound(level_bounds: List[float]) -> float:
+    """HB L-inf bound: Σ_l e_l (+ base bound, passed as last entry)."""
+    return float(np.sum(level_bounds))

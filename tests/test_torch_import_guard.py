@@ -1,0 +1,97 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package
+``repro``, builds nothing at import, and never falls back to the CPU
+quietly."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import device as port_device  # noqa: E402
+from repro_torch.convert import archive_from_arrays  # noqa: E402
+from repro_torch.core.refactor import refactor_variables  # noqa: E402
+from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: E402
+from repro_torch.kernels.bitplane_unpack import bitplane_unpack  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        .replace(".__init__", "")
+        for p in PKG.rglob("*.py"))
+
+
+def test_every_module_imports_without_jax_repro_or_triton():
+    mods = _modules()
+    assert "repro_torch.core.retrieval" in mods
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'repro', 'triton'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('imported', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b)",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_no_jax_or_repro_import_statement(path):
+    src = (REPO / path).read_text()
+    assert not FORBIDDEN.findall(src), path
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fields = {"P": np.linspace(1.0, 2.0, 33)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refactor_variables(fields)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_device.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        archive_from_arrays({"method": "hb", "variables": {}, "masks": {},
+                             "ranges": {}, "shapes": {}})
+    # an explicit CPU request is honoured
+    assert refactor_variables(fields, device="cpu").device.type == "cpu"
+
+
+def test_refactor_names_the_roadmap_item_of_unported_methods():
+    for method in ("ob", "ip", "psz3", "psz3_delta"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            refactor_variables({"P": np.ones(9)}, method=method,
+                               device="cpu")
+    with pytest.raises(ValueError):
+        refactor_variables({"P": np.ones(9)}, method="nope", device="cpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    c = torch.zeros(64, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitplane_pack(c, 1.0, 48)
+    w = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    s = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitplane_unpack(w, s)
+
+
+def test_importing_kernels_builds_nothing():
+    from repro_torch.kernels import build
+    # the loader is only reached from a CUDA launch
+    assert build._loaded == {}
