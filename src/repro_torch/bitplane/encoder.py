@@ -22,7 +22,7 @@ Retrieving the first k planes bounds the coefficient error by
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,6 +69,8 @@ class LevelBitplanes:
     planes: List[bytes]            # tagged packed-word planes, MSB-first
     plane_raw_bits: int            # uncompressed bits per plane (= count)
     signs: bytes                   # codec-tagged packbits(c < 0)
+    _crcs: Optional[Tuple[Tuple[int, ...], int]] = field(
+        default=None, repr=False, compare=False)
 
     @property
     def total_nbytes(self) -> int:
@@ -81,6 +83,16 @@ class LevelBitplanes:
                               nbits=self.nbits,
                               plane_sizes=tuple(len(p) for p in self.planes),
                               sign_size=len(self.signs))
+
+    def segment_crcs(self) -> Tuple[Tuple[int, ...], int]:
+        """(per-plane crc32c, sign crc32c), computed on first use: the store
+        manifest records them and the fetcher re-verifies every segment it
+        delivers."""
+        if self._crcs is None:
+            from repro_torch.store.crc import crc32c
+            self._crcs = (tuple(crc32c(p) for p in self.planes),
+                          crc32c(self.signs))
+        return self._crcs
 
 
 def encode_level(coeffs: torch.Tensor,

@@ -7,7 +7,14 @@ state and the float64 values — on its device between requests.  Newly
 fetched planes are inflated on the host at fetch time and deferred; the
 next ``values()`` flushes them in ONE fused decode launch that ORs them
 into the device state, signs and scales.  Decoded values depend only on the
-final plane count, whatever the fetch schedule.
+final plane count, whatever the fetch schedule and whatever the source: an
+in-memory group or a store-backed one that fetches checksum-verified
+segments through a ``SegmentFetcher`` (``repro_torch.store``).
+
+``prefetch_to_planes`` forwards a hint to the source, whose fetcher threads
+move the bytes in the background; nothing of the device is touched off the
+caller's thread.  A segment that is permanently unavailable pins the stream
+at the deepest contiguous plane prefix it could decode (degraded mode).
 """
 from __future__ import annotations
 
@@ -36,8 +43,23 @@ class PlaneSource:
     def planes(self, start: int, stop: int) -> Sequence[bytes]:
         raise NotImplementedError
 
+    def planes_available(self, start: int, stop: int):
+        """Deliverable prefix of planes [start, stop): ``(buffers, error)``,
+        with ``error`` None only when every plane arrived.  A bitplane
+        prefix is useful exactly as far as it is contiguous, so a source
+        that can fail partially (store-backed) overrides this to return
+        what it got; the default is all-or-nothing via ``planes``."""
+        try:
+            return list(self.planes(start, stop)), None
+        except Exception as e:
+            return [], e
+
     def signs(self) -> bytes:
         raise NotImplementedError
+
+    def prefetch(self, start: int, stop: int, certain: bool = True) -> None:
+        """Hint that planes [start, stop) will be requested; ``certain=False``
+        marks a speculative prediction the reader may never follow up on."""
 
 
 class InMemoryPlaneSource(PlaneSource):
@@ -67,6 +89,10 @@ class LevelStream:
         self.device = device
         self.fetched = 0
         self.bytes_fetched = 0
+        # degraded mode: deepest reachable plane count once a segment of
+        # this group proved permanently unavailable (None = fully available)
+        self.pinned: Optional[int] = None
+        self.pin_error: Optional[BaseException] = None
         # full-word-length (W*32,) int64 magnitude state on the device
         self._mag: Optional[torch.Tensor] = None
         self._signs: Optional[bytes] = None
@@ -76,27 +102,60 @@ class LevelStream:
         self._pending_words: list = []
         self._pending_shifts: list = []
 
+    def _pin(self, k: int, err: BaseException) -> None:
+        self.pinned = k
+        self.pin_error = err
+
     def fetch_to_planes(self, k: int) -> int:
-        """Retrieve planes up to k (MSB-first). Returns newly moved bytes."""
+        """Retrieve planes up to k (MSB-first). Returns newly moved bytes.
+
+        A permanently unavailable segment does not raise: the stream pins
+        at the deepest contiguous plane prefix it could decode — its bound
+        (computed from the planes actually decoded) stays valid, just wider
+        than requested — and records the cause in ``pin_error``."""
         meta = self.meta
         k = int(np.clip(k, 0, meta.nbits))
+        if self.pinned is not None:
+            k = min(k, self.pinned)
         if meta.exponent is None or k <= self.fetched:
             return 0
-        if self.fetched == 0:
-            self._signs = self.source.signs()
-        blobs = self.source.planes(self.fetched, k)
-        # signs ride with the first plane
-        new_bytes = sum(meta.plane_sizes[self.fetched:k])
-        if self.fetched == 0:
+        if self.fetched == 0 and self._signs is None:
+            try:
+                self._signs = self.source.signs()
+            except Exception as e:       # no signs -> no usable plane 0
+                self._pin(0, e)
+                return 0
+        blobs, err = self.source.planes_available(self.fetched, k)
+        got = self.fetched + len(blobs)
+        # signs ride with the first plane: their bytes are charged when a
+        # plane actually lands
+        new_bytes = sum(meta.plane_sizes[self.fetched:got])
+        if self.fetched == 0 and got > 0:
             new_bytes += meta.sign_size
-        words, shifts = inflate_planes(meta.count, meta.nbits, blobs,
-                                       self.fetched)
-        self._pending_words.append(words)
-        self._pending_shifts.append(shifts)
-        self.fetched = k
-        self.bytes_fetched += new_bytes
-        self._values = None
-        return new_bytes
+        if blobs:
+            words, shifts = inflate_planes(meta.count, meta.nbits, blobs,
+                                           self.fetched)
+            self._pending_words.append(words)
+            self._pending_shifts.append(shifts)
+            self.fetched = got
+            self.bytes_fetched += new_bytes
+            self._values = None
+        if err is not None:
+            self._pin(self.fetched, err)
+        return new_bytes if blobs else 0
+
+    def prefetch_to_planes(self, k: int, certain: bool = True) -> None:
+        """Hint the source that planes up to ``k`` will be requested; a
+        store-backed source starts moving planes [fetched, k) in the
+        background.  Never changes decode state or byte accounting."""
+        meta = self.meta
+        if meta.exponent is None:
+            return
+        k = int(np.clip(k, 0, meta.nbits))
+        if self.pinned is not None:
+            k = min(k, self.pinned)    # never speculate past the pin
+        if k > self.fetched:
+            self.source.prefetch(self.fetched, k, certain=certain)
 
     def _decoded_signs(self) -> np.ndarray:
         if self._sign_bytes is None:
@@ -140,3 +199,17 @@ class LevelStream:
     @property
     def bound(self) -> float:
         return plane_bound(self.meta, self.fetched)
+
+    def reset(self) -> None:
+        """Forget every fetched plane and the pin, so a re-read can find a
+        healed segment."""
+        self.fetched = 0
+        self.bytes_fetched = 0
+        self.pinned = None
+        self.pin_error = None
+        self._mag = None
+        self._signs = None
+        self._sign_bytes = None
+        self._values = None
+        self._pending_words.clear()
+        self._pending_shifts.clear()

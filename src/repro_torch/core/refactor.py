@@ -69,8 +69,11 @@ _NOT_PORTED = {"ob": "A8", "ip": "A8", "psz3": "A8", "psz3_delta": "A8"}
 @dataclass(frozen=True)
 class VarAvailability:
     """Availability report for one variable: ``floor`` is the tightest
-    L-inf bound it can certify; ``pinned`` marks a variable whose segments
-    are partly unavailable (in-memory archives never are)."""
+    L-inf bound it can certify from the segments it can still reach;
+    ``pinned`` marks a variable whose segments are partly unavailable (a
+    store archive with a missing shard; in-memory archives never are), which
+    the retrieval loop must stop tightening.  ``detail`` carries the first
+    underlying cause."""
     pinned: bool
     floor: float
     detail: str = ""
@@ -139,8 +142,7 @@ class BitplaneVarArchive:
     def open_reader(self, options: SessionOptions,
                     device: torch.device) -> "_BitplaneVarReader":
         return _BitplaneVarReader(
-            self, contrib_budget_bytes=options.contrib_budget_bytes,
-            device=device)
+            self, device, contrib_budget_bytes=options.contrib_budget_bytes)
 
 
 @dataclass
@@ -223,15 +225,23 @@ def _build_bitplane_var(data: np.ndarray, nbits: int, max_levels: int,
 
 
 class _BitplaneVarReader:
-    """Progressive reader over one hb variable, decoding on ``device``.
+    """Progressive reader over one hb variable, decoding on ``device``: an
+    in-memory `BitplaneVarArchive` or a store-backed
+    `repro_torch.store.StoreBitplaneVar` (same surface: shapes, levels,
+    groups, group_indices, plane_sources); planes arrive through each
+    group's PlaneSource.
 
     ``contrib_budget_bytes`` bounds the retained contribution cache (see
     module docstring): None keeps every level resident; any other value
     keeps the ``budget // field_nbytes`` finest levels and spills the rest —
-    bit-identical outputs at any budget, including zero."""
+    bit-identical outputs at any budget, including zero.  ``contrib_stats``
+    is an optional external sink for the ``contrib_*`` counters (store-backed
+    readers pass their fetcher's FetchStats, so one object reports transport
+    and residency)."""
 
-    def __init__(self, var: BitplaneVarArchive, device: torch.device,
-                 contrib_budget_bytes: Optional[int] = None):
+    def __init__(self, var, device: torch.device,
+                 contrib_budget_bytes: Optional[int] = None,
+                 contrib_stats=None):
         self.var = var
         self.device = device
         self.streams = [LevelStream(src, device)
@@ -244,7 +254,8 @@ class _BitplaneVarReader:
         self._contribs: List[Optional[torch.Tensor]] = [None] * ngroups
         self._contrib_fetched: List[int] = [-1] * ngroups
         self._field_nbytes = int(np.prod(var.padded_shape)) * 8
-        self.contrib_stats = ContribStats()
+        self.contrib_stats = contrib_stats if contrib_stats is not None \
+            else ContribStats()
         if contrib_budget_bytes is None:
             self._resident_cap = ngroups
         else:
@@ -282,18 +293,44 @@ class _BitplaneVarReader:
     def achieved_bound(self) -> float:
         return hb_error_bound([s.bound for s in self.streams])
 
+    @property
+    def is_degraded(self) -> bool:
+        """True once any coefficient group pinned at a partial plane prefix
+        (a segment of it is permanently unavailable this session)."""
+        return any(s.pinned is not None for s in self.streams)
+
+    def availability_floor(self) -> float:
+        """Tightest bound certifiable from the deliverable plane prefixes:
+        each group contributes its bound at the deepest reachable plane
+        (the pin for degraded groups, full depth otherwise), summed like
+        ``achieved_bound``."""
+        return hb_error_bound([
+            plane_bound(s.meta, s.meta.nbits if s.pinned is None
+                        else s.pinned) for s in self.streams])
+
     def availability(self) -> VarAvailability:
-        """In-memory planes are always deliverable: never pinned, and the
-        floor is the codec's bound at full plane depth."""
-        floor = hb_error_bound([plane_bound(s.meta, s.meta.nbits)
-                                for s in self.streams])
-        return VarAvailability(pinned=False, floor=floor)
+        detail = ""
+        if self.is_degraded:
+            errs = [s.pin_error for s in self.streams
+                    if s.pin_error is not None]
+            detail = str(errs[0]) if errs else ""
+        return VarAvailability(pinned=self.is_degraded,
+                               floor=self.availability_floor(),
+                               detail=detail)
 
     def request(self, eps: float) -> Tuple[torch.Tensor, float]:
         for s, k in zip(self.streams, self._plane_targets(eps)):
             s.fetch_to_planes(k)
         self._refresh_hb_incremental()
         return self._recon, self.achieved_bound()
+
+    def prefetch_eps(self, eps: float, certain: bool = True) -> None:
+        """Hint that a request at ``eps`` is coming: split the budget exactly
+        as ``request`` will and forward per-group plane ranges to the
+        sources (store-backed ones start background fetches; in-memory ones
+        ignore it).  No decode state or byte accounting changes."""
+        for s, k in zip(self.streams, self._plane_targets(eps)):
+            s.prefetch_to_planes(k, certain=certain)
 
     def _group_idx_dev(self, l: int) -> torch.Tensor:
         idx = self._idx_dev.get(l)
@@ -358,10 +395,11 @@ class _BitplaneVarReader:
 
 
 class RetrievalSession:
-    """Progressive, stateful reader over all variables of an Archive, on
-    the archive's device."""
+    """Progressive, stateful reader over all variables of an archive — the
+    in-memory `Archive` or a store-backed `repro_torch.store.StoreArchive`
+    — decoding on the archive's device."""
 
-    def __init__(self, archive: Archive,
+    def __init__(self, archive,
                  options: Optional[SessionOptions] = None):
         self.archive = archive
         self.options = options if options is not None else SessionOptions()
@@ -379,10 +417,15 @@ class RetrievalSession:
 
     def contrib_stats(self) -> ContribStats:
         """Aggregate contribution-cache counters over this session's
-        readers."""
+        readers.  Distinct sinks are summed once: store-backed readers all
+        share their fetcher's FetchStats (which also carries the other
+        sessions of the same archive)."""
         agg = ContribStats()
+        seen = set()
         for r in self.readers.values():
-            agg.merge(r.contrib_stats)
+            if id(r.contrib_stats) not in seen:
+                seen.add(id(r.contrib_stats))
+                agg.merge(r.contrib_stats)
         return agg
 
     def availability(self) -> Dict[str, VarAvailability]:
@@ -394,9 +437,16 @@ class RetrievalSession:
                 out[name] = a
         return out
 
+    @property
+    def degraded(self) -> bool:
+        return bool(self.availability())
+
     def prefetch(self, name: str, eps: float, certain: bool = True) -> None:
-        """Hint that ``reconstruct(name, eps)`` is coming.  A no-op: every
-        plane of an in-memory archive is already resident."""
+        """Non-binding hint that ``reconstruct(name, eps)`` is coming: a
+        store-backed reader starts moving the planes in the background; for
+        an in-memory archive, whose planes are all resident, it does
+        nothing."""
+        self.readers[name].prefetch_eps(eps, certain=certain)
 
     def reconstruct(self, name: str, eps: float) -> Tuple[torch.Tensor,
                                                           float]:

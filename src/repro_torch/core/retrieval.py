@@ -62,6 +62,11 @@ class RetrievalResult:
     bitrate: float
     iterations: List[IterationLog]
     converged: bool
+    # certified degraded mode: True when any variable was availability-
+    # pinned (permanently missing segments).  ``est_errors`` remain valid
+    # upper bounds — computed from what actually decoded — they just may
+    # exceed ``tau_abs``; ``availability`` reports the pinned variables.
+    degraded: bool = False
     availability: Dict[str, VarAvailability] = field(default_factory=dict)
 
 
@@ -111,6 +116,7 @@ def retrieve_qoi_controlled(session,
     values: Dict[str, torch.Tensor] = {}
     eb_arrays: Dict[str, torch.Tensor] = {}
     achieved: Dict[str, float] = {}
+    pinned_vars: set = set()       # availability-pinned (degraded) variables
     converged = False
 
     for it in range(max_iters):
@@ -122,6 +128,17 @@ def retrieve_qoi_controlled(session,
             values[v] = data
             achieved[v] = ach
             eb_arrays[v] = session.eb_array(v, ach)
+
+        # -- availability-pinned variables (certified degraded mode): a
+        # variable whose segments are permanently unavailable cannot be
+        # tightened past its achievable floor — raise its ladder floor so
+        # reassign_eb freezes it there instead of re-requesting the same
+        # missing planes forever (the frozen/at_floor machinery below then
+        # guarantees termination exactly as for codec floors)
+        for v, a in session.availability().items():
+            if v in floors and np.isfinite(a.floor):
+                floors[v] = max(floors[v], a.floor)
+                pinned_vars.add(v)
 
         # -- QoI error estimation (lines 12-24)
         est_errors: Dict[str, float] = {}
@@ -162,8 +179,12 @@ def retrieve_qoi_controlled(session,
             + [eb_arrays[v].reshape(-1)[idx] for v in involved]).tolist()
         pt_vals = dict(zip(involved, at_idx[:len(involved)]))
         pt_eb = dict(zip(involved, at_idx[len(involved):]))
-        # exact (masked) points keep their zero bound
+        # exact (masked) points keep their zero bound; a pinned variable's
+        # bound cannot drop below what it achieved — seeding its ladder with
+        # the (unreachable) requested eps would predict tightenings the
+        # reconstruct pass can never deliver
         pt_ebs = {v: pt_eb[v] if pt_eb[v] == 0.0
+                  else achieved[v] if v in pinned_vars
                   else min(achieved[v], eps[v]) for v in involved}
         # the whole geometric eps-ladder of candidate bound states in ONE
         # batched evaluation: state t is exactly what t sequential
@@ -213,9 +234,11 @@ def retrieve_qoi_controlled(session,
                 eb_arrays[v] = session.eb_array(v, ach)
             break
 
+    availability = session.availability()
     return RetrievalResult(values=values, achieved_eb=achieved,
                            est_errors=est_errors, tau_abs=tau_abs,
                            bytes_retrieved=session.bytes_retrieved,
                            bitrate=session.bitrate(needed),
                            iterations=logs, converged=converged,
-                           availability=session.availability())
+                           degraded=bool(availability),
+                           availability=availability)

@@ -40,6 +40,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # vals_out, stream
         "bitplane_decode": (_P, _P, _I, _LL, _P, _P, _P, _D, _P, _P),
     },
+    "level_vtotal": {
+        # even, odd, rows, m, dtype (0 f32, 1 f64), out, stream
+        "hier_level_surplus": (_P, _P, _LL, _LL, _I, _P, _P),
+        # vx, vy, vz, ex, ey, ez, n, dtype, val_out, bound_out, stream
+        "qoi_vtotal": (_P, _P, _P, _D, _D, _D, _LL, _I, _P, _P, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,13 @@
-"""Codec entry points over the kernel wrappers.
+"""Entry points over the kernel wrappers.
 
-Counterpart of ``repro/kernels/ops.py`` for the two kernels on the main
-path.  Unlike the JAX module there is one decode path: on a CUDA device
-every call launches the CUDA kernel, whatever the group size, and on the CPU
-it runs the kernel's plain version.  The kernel takes a run-time plane
-count and 64-bit shifts, so the JAX module's plane padding (which bounds its
-jit cache) and hi/lo uint32 split have no counterpart here.
+Counterpart of ``repro/kernels/ops.py``: the codec's two kernels on the
+main path, and ``level_surplus`` / ``vtotal_with_bound`` over the
+hierarchical-surplus and fused-Vtotal kernels.  Unlike the JAX module there
+is one decode path: on a CUDA device every call launches the CUDA kernel,
+whatever the group size, and on the CPU it runs the kernel's plain version.
+The kernel takes a run-time plane count and 64-bit shifts, so the JAX
+module's plane padding (which bounds its jit cache) and hi/lo uint32 split
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 from repro_torch.kernels.bitplane_pack import bitplane_pack
 from repro_torch.kernels.bitplane_unpack import bitplane_unpack
+from repro_torch.kernels.hier_level import hier_level_surplus
+from repro_torch.kernels.qoi_vtotal import qoi_vtotal
 
 
 def encode_magnitude_planes(c: torch.Tensor, scale: float,
@@ -87,3 +91,18 @@ def as_words(words: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
     ).to(device)
+
+
+def level_surplus(x_even: torch.Tensor, x_odd: torch.Tensor) -> torch.Tensor:
+    """Batched 1-D surplus ``x_odd - 0.5·(x_even[:, :-1] + x_even[:, 1:])``
+    for any (B, M+1), (B, M); one kernel launch on CUDA, the plain version
+    on the CPU.  The reference's row padding has no counterpart."""
+    return hier_level_surplus(x_even, x_odd)
+
+
+def vtotal_with_bound(vx: torch.Tensor, vy: torch.Tensor, vz: torch.Tensor,
+                      eps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused Vtotal (value, Thm-2 bound) for flat tensors of any length;
+    ``eps`` is three host floats (a tensor is refused: reading it would
+    sync).  One kernel launch on CUDA, the plain version on the CPU."""
+    return qoi_vtotal(vx, vy, vz, eps)

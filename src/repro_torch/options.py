@@ -1,14 +1,54 @@
-"""Session options of the port.
+"""Open and session options of the port.
 
-Counterpart of ``repro/options.py``, reduced to the field the hb reader
-reads.  The reference's other session fields (prefetch depth, shared
-contribution pool, decode batcher) and its ``OpenOptions`` belong to the
-store and serve plane, which later slices port.
+Counterpart of ``repro/options.py``: :class:`OpenOptions` (how a store
+archive is opened: transport, verification, caching, fault tolerance) and
+:class:`SessionOptions` (how one retrieval session reads), reduced to the
+fields the hb reader and the store plane read.  The reference's session
+fields for the serve plane (prefetch depth, shared contribution pool,
+decode batcher), its ``follow`` flag for live archives, and its shim for
+pre-v4 loose keyword arguments have no counterpart here.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Callable, Optional
+
+
+@dataclass(frozen=True)
+class OpenOptions:
+    """How an archive container is opened (transport + integrity layer).
+
+      * ``prefetch_workers`` — background segment-fetch threads (0 disables
+        async prefetch); they move bytes only, never touch the device;
+      * ``verify`` — crc32c-check every delivered segment;
+      * ``blob_resolver`` — override blob-name -> ByteStore lookup so shards
+        can mix backends;
+      * ``cache`` — cross-session ``SegmentCache``;
+      * ``archive_id`` — cache budget-group override (default: manifest
+        hash);
+      * ``retry_policy`` / ``quarantine`` — fault-tolerance layer
+        (``repro_torch.store.retry``); None enables the hardened defaults.
+    """
+    prefetch_workers: int = 2
+    verify: bool = True
+    blob_resolver: Optional[Callable[[str], Any]] = None
+    cache: Optional[Any] = None
+    archive_id: Optional[str] = None
+    retry_policy: Optional[Any] = None
+    quarantine: Optional[Any] = None
+
+    @classmethod
+    def default(cls) -> "OpenOptions":
+        """Single-client defaults: verified reads, light prefetch."""
+        return cls()
+
+    @classmethod
+    def multi_tenant(cls, cache, retry_policy=None,
+                     quarantine=None) -> "OpenOptions":
+        """Serve-plane preset: a shared cross-session cache plus the
+        hardened retry/quarantine defaults (None keeps them enabled)."""
+        return cls(cache=cache, retry_policy=retry_policy,
+                   quarantine=quarantine)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,657 @@
+"""Archive containers for hb archives: manifest + segment payload(s),
+single-file or sharded.
+
+Counterpart of ``repro/store/container.py``; the container format is the
+reference's, byte for byte, so either package opens what the other wrote.
+Layout of a single-file ``.prs`` container::
+
+    magic  b"PRSTORE1"                          (8 bytes)
+    manifest length, uint64 little-endian       (8 bytes)
+    manifest JSON (utf-8)
+    payload: concatenated segments
+
+A *sharded* container is a directory (or URL prefix, or any set of
+ByteStores) holding ``manifest.json`` plus one payload blob per shard — per
+variable (``Vx.seg``) or per level group (``Vx.g0.seg``).
+
+The manifest carries the method, per-variable group metadata (counts,
+exponents, nbits, per-plane sizes), outlier-mask shapes and value ranges,
+plus a segment index mapping ``key -> (blob, offset, size, crc32c, codec)``
+(format v3).  v2 manifests carry ``(blob, offset, size, crc32c)`` and v1
+manifests ``(offset, size, crc32c)`` with an implicit single blob; all
+three parse, and v1/v2 plane payloads decode through the codec registry's
+legacy paths.
+
+``save_archive`` / ``save_sharded_archive`` serialize a port `Archive`;
+``open_archive`` yields a `StoreArchive` whose ``open()`` returns a regular
+`RetrievalSession` decoding on the archive's device — readers stream
+checksum-verified segments through a `SegmentFetcher`, whose threads only
+move bytes: inflation, the host -> device copy and every kernel launch stay
+on the caller's thread and stream.  Reconstructions are bit-identical to an
+in-memory session at every requested bound.
+
+Only the hb method is ported: archives with ob/ip/psz3/psz3_delta
+variables raise ``NotImplementedError`` naming ROADMAP A8, and live
+(journaled, format v4) archives naming A9.
+"""
+from __future__ import annotations
+
+import json
+import os
+import struct
+import urllib.parse
+import zlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.bitplane.codecs import blob_codec_id, codec_name
+from repro_torch.bitplane.encoder import PlaneGroupMeta
+from repro_torch.bitplane.segments import PlaneSource
+from repro_torch.core.masks import OutlierMask
+from repro_torch.core.refactor import (
+    Archive,
+    BitplaneVarArchive,
+    RetrievalSession,
+    _BitplaneVarReader,
+)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.options import OpenOptions, SessionOptions
+from repro_torch.store.bytestore import ByteStore, FileByteStore, \
+    HTTPByteStore, MemoryByteStore
+from repro_torch.store.cache import SegmentCache
+from repro_torch.store.crc import crc32c
+from repro_torch.store.fetcher import SegmentEntry, SegmentFetcher
+from repro_torch.store.retry import BlobQuarantine, RetryPolicy
+from repro_torch.transform.hierarchical import level_map
+
+MAGIC = b"PRSTORE1"
+FORMAT_VERSION = 4          # newest container format of the reference
+STATIC_FORMAT_VERSION = 3   # what save_archive writes
+MANIFEST_NAME = "manifest.json"
+
+SHARD_POLICIES = ("single", "variable", "group")
+
+
+def segment_depth(key: str) -> int:
+    """Progressive depth of a segment key — cache-eviction metadata.
+
+    Bitplane segments ``V/g<l>/p<b>`` map to their plane index ``b`` (0 =
+    MSB, consumed by every client; large = LSB, consumed by few); snapshot
+    blobs ``V/s<i>/b<j>`` and timestep blobs ``V/t<k>/b<j>`` to ``i`` /
+    ``k``.  Sign planes, masks and anything unrecognised map to 0 — they
+    ride with the first plane and are as shared as the MSB prefix."""
+    parts = key.split("/")
+    last = parts[-1]
+    if last[:1] == "p" and last[1:].isdigit():
+        return int(last[1:])
+    if len(parts) == 3 and parts[1][:1] in ("s", "t") \
+            and parts[1][1:].isdigit() and last[:1] == "b":
+        return int(parts[1][1:])
+    return 0
+
+
+def _shard_of(key: str, shard_by: str) -> str:
+    """Map a segment key to its payload blob name under a shard policy.
+
+    Keys look like ``Vx/g0/p3``, ``Vx/g0/signs``, ``Vx/mask/bitmap`` — the
+    first component is always the variable.
+    """
+    if shard_by == "single":
+        return ""
+    parts = key.split("/")
+    var = parts[0]
+    if shard_by == "variable":
+        return f"{var}.seg"
+    if shard_by == "group":
+        if parts[1] == "mask":
+            return f"{var}.meta.seg"
+        return f"{var}.{parts[1]}.seg"
+    raise ValueError(f"unknown shard policy {shard_by!r}; "
+                     f"choose from {SHARD_POLICIES}")
+
+
+def _check_ported(manifest: dict) -> None:
+    """Raise for what the port cannot open yet, naming the ROADMAP item."""
+    if manifest.get("format") != "prstore":
+        raise ValueError("not a prstore manifest")
+    if manifest.get("version", 0) > FORMAT_VERSION:
+        raise ValueError(f"container version {manifest.get('version')} "
+                         f"newer than supported {FORMAT_VERSION}")
+    if manifest.get("journal"):
+        raise NotImplementedError("live (journaled) archives are not ported "
+                                  "to repro_torch yet (ROADMAP A9)")
+    for name, spec in manifest["variables"].items():
+        kind = spec.get("kind")
+        if kind == "timeseries":
+            raise NotImplementedError(
+                f"{name}: timeseries variables are not ported to repro_torch "
+                f"yet (ROADMAP A9)")
+        if kind != "bitplane" or spec.get("method") != "hb":
+            what = spec.get("method", "delta" if spec.get("delta")
+                            else kind)
+            raise NotImplementedError(
+                f"{name}: {what} variables are not ported to repro_torch "
+                f"yet (ROADMAP A8)")
+
+
+# ---------------------------------------------------------------------------
+# Serialization
+# ---------------------------------------------------------------------------
+
+
+class _SegmentWriter:
+    """Routes segments into per-shard payload blobs; builds the v3 index."""
+
+    def __init__(self, shard_by: str = "single"):
+        self.shard_by = shard_by
+        self.index: Dict[str, List] = {}
+        self._chunks: Dict[str, List[bytes]] = {}
+        self._offsets: Dict[str, int] = {}
+
+    def add(self, key: str, data: bytes, crc: Optional[int] = None,
+            codec: Optional[int] = None) -> None:
+        if key in self.index:
+            raise ValueError(f"duplicate segment key {key!r}")
+        blob = _shard_of(key, self.shard_by)
+        off = self._offsets.get(blob, 0)
+        self.index[key] = [blob, off, len(data),
+                           crc32c(data) if crc is None else crc, codec]
+        self._chunks.setdefault(blob, []).append(data)
+        self._offsets[blob] = off + len(data)
+
+    def payloads(self) -> Dict[str, bytes]:
+        return {blob: b"".join(chunks)
+                for blob, chunks in self._chunks.items()}
+
+
+def _bitplane_var_manifest(name: str, var: BitplaneVarArchive,
+                           w: _SegmentWriter) -> dict:
+    groups = []
+    for l, g in enumerate(var.groups):
+        plane_crcs, sign_crc = g.segment_crcs()
+        for b, blob in enumerate(g.planes):
+            w.add(f"{name}/g{l}/p{b}", blob, crc=plane_crcs[b],
+                  codec=blob_codec_id(blob))
+        if g.exponent is not None:
+            w.add(f"{name}/g{l}/signs", g.signs, crc=sign_crc,
+                  codec=blob_codec_id(g.signs))
+        groups.append({"count": g.count, "exponent": g.exponent,
+                       "nbits": g.nbits,
+                       "plane_sizes": [len(p) for p in g.planes],
+                       "sign_size": len(g.signs)})
+    return {"kind": "bitplane", "method": var.method,
+            "orig_shape": list(var.orig_shape),
+            "padded_shape": list(var.padded_shape),
+            "levels": var.levels, "groups": groups}
+
+
+def build_sharded_container(archive: Archive,
+                            shard_by: str = "variable"
+                            ) -> Tuple[dict, Dict[str, bytes]]:
+    """Archive -> (manifest dict, payload blobs keyed by blob name).  Every
+    manifest value is a Python scalar, so ``json.dumps`` writes the
+    reference's bytes."""
+    w = _SegmentWriter(shard_by=shard_by)
+    variables: Dict[str, dict] = {}
+    for name, var in archive.variables.items():
+        if "/" in name:
+            raise ValueError(f"variable name {name!r} may not contain '/'")
+        if not isinstance(var, BitplaneVarArchive):
+            raise TypeError(f"cannot serialize variable of type {type(var)}")
+        variables[name] = _bitplane_var_manifest(name, var, w)
+    masks: Dict[str, dict] = {}
+    for name, m in archive.masks.items():
+        w.add(f"{name}/mask/bitmap", np.packbits(m.mask.ravel()).tobytes())
+        w.add(f"{name}/mask/values",
+              np.ascontiguousarray(m.values, dtype=np.float64).tobytes())
+        masks[name] = {"shape": list(m.mask.shape),
+                       "n_true": int(m.mask.sum())}
+    payloads = w.payloads()
+    manifest = {
+        "format": "prstore", "version": STATIC_FORMAT_VERSION,
+        "method": archive.method,
+        "ranges": dict(archive.ranges),
+        "shapes": {k: list(v) for k, v in archive.shapes.items()},
+        "masks": masks,
+        "variables": variables,
+        "segments": w.index,
+        "blobs": {blob: len(data) for blob, data in payloads.items()},
+    }
+    return manifest, payloads
+
+
+def build_container(archive: Archive) -> Tuple[dict, bytes]:
+    """Archive -> (manifest dict, single payload bytes)."""
+    manifest, payloads = build_sharded_container(archive, shard_by="single")
+    return manifest, payloads.get("", b"")
+
+
+def save_archive(archive: Archive, path: str) -> int:
+    """Serialize ``archive`` into a container file; returns bytes written."""
+    manifest, payload = build_container(archive)
+    blob = json.dumps(manifest, sort_keys=True).encode("utf-8")
+    with open(path, "wb") as fh:
+        fh.write(MAGIC)
+        fh.write(struct.pack("<Q", len(blob)))
+        fh.write(blob)
+        fh.write(payload)
+    return len(MAGIC) + 8 + len(blob) + len(payload)
+
+
+def save_sharded_archive(archive: Archive, directory: str,
+                         shard_by: str = "variable") -> int:
+    """Serialize ``archive`` as ``directory/manifest.json`` + one payload
+    file per shard; returns total bytes written.  A variable can be dropped
+    by deleting its blob(s) — sessions that never touch it keep working."""
+    if shard_by == "single":
+        raise ValueError("use save_archive for single-payload containers")
+    manifest, payloads = build_sharded_container(archive, shard_by=shard_by)
+    os.makedirs(directory, exist_ok=True)
+    total = 0
+    for blob, data in payloads.items():
+        with open(os.path.join(directory, blob), "wb") as fh:
+            fh.write(data)
+        total += len(data)
+    mblob = json.dumps(manifest, sort_keys=True, indent=1).encode("utf-8")
+    with open(os.path.join(directory, MANIFEST_NAME), "wb") as fh:
+        fh.write(mblob)
+    return total + len(mblob)
+
+
+# ---------------------------------------------------------------------------
+# Store-backed variables (mirror the in-memory archive interfaces)
+# ---------------------------------------------------------------------------
+
+
+class FetcherPlaneSource(PlaneSource):
+    """PlaneSource streaming one group's segments through a SegmentFetcher."""
+
+    def __init__(self, fetcher: SegmentFetcher, prefix: str,
+                 meta: PlaneGroupMeta):
+        self.fetcher = fetcher
+        self.prefix = prefix
+        self.meta = meta
+
+    def planes(self, start: int, stop: int) -> Sequence[bytes]:
+        return self.fetcher.fetch_many(
+            f"{self.prefix}/p{b}" for b in range(start, stop))
+
+    def planes_available(self, start: int, stop: int):
+        # degraded-mode path: deliver the longest contiguous plane prefix
+        # instead of all-or-nothing (see SegmentFetcher.fetch_prefix)
+        return self.fetcher.fetch_prefix(
+            f"{self.prefix}/p{b}" for b in range(start, stop))
+
+    def signs(self) -> bytes:
+        return self.fetcher.fetch(f"{self.prefix}/signs")
+
+    def prefetch(self, start: int, stop: int, certain: bool = True) -> None:
+        keys = [f"{self.prefix}/p{b}" for b in range(start, stop)]
+        if start == 0:               # signs ride with the first plane
+            keys.append(f"{self.prefix}/signs")
+        self.fetcher.prefetch(keys, certain=certain)
+
+
+class StoreBitplaneVar:
+    """Store-backed hb variable: the reader-facing surface of
+    `BitplaneVarArchive` (method, shapes, levels, groups, group_indices,
+    plane_sources), with plane payloads left on the ByteStore."""
+
+    def __init__(self, name: str, spec: dict, fetcher: SegmentFetcher):
+        self.name = name
+        self.method: str = spec["method"]
+        self.orig_shape = tuple(spec["orig_shape"])
+        self.padded_shape = tuple(spec["padded_shape"])
+        self.levels: int = spec["levels"]
+        self.groups: List[PlaneGroupMeta] = [
+            PlaneGroupMeta(count=g["count"], exponent=g["exponent"],
+                           nbits=g["nbits"],
+                           plane_sizes=tuple(g["plane_sizes"]),
+                           sign_size=g["sign_size"])
+            for g in spec["groups"]]
+        self._fetcher = fetcher
+        self._indices: Optional[List[np.ndarray]] = None
+
+    @property
+    def group_indices(self) -> List[np.ndarray]:
+        # a deterministic function of (padded_shape, levels), recomputed
+        # instead of stored, exactly as the refactor computed it
+        if self._indices is None:
+            lmap = level_map(self.padded_shape, self.levels).ravel()
+            self._indices = [np.flatnonzero(lmap == l)
+                             for l in range(self.levels + 1)]
+        return self._indices
+
+    @property
+    def total_nbytes(self) -> int:
+        return sum(sum(g.plane_sizes) + g.sign_size for g in self.groups)
+
+    def plane_sources(self) -> List[PlaneSource]:
+        return [FetcherPlaneSource(self._fetcher, f"{self.name}/g{l}", meta)
+                for l, meta in enumerate(self.groups)]
+
+    def open_reader(self, options: SessionOptions,
+                    device: torch.device) -> _BitplaneVarReader:
+        # the fetcher's FetchStats doubles as the ContribStats sink so one
+        # object reports transport traffic AND reader residency/spills
+        return _BitplaneVarReader(
+            self, device, contrib_budget_bytes=options.contrib_budget_bytes,
+            contrib_stats=self._fetcher.stats)
+
+
+# ---------------------------------------------------------------------------
+# StoreArchive
+# ---------------------------------------------------------------------------
+
+
+class _LazyMasks:
+    """Mapping-like mask access that fetches (and verifies) mask segments on
+    first use — a session that never touches a variable never moves its
+    mask."""
+
+    def __init__(self, specs: Dict[str, dict], fetcher: SegmentFetcher):
+        self._specs = specs
+        self._fetcher = fetcher
+        self._cache: Dict[str, OutlierMask] = {}
+        # variable -> first fetch failure: a permanently missing mask
+        # degrades to "no mask" — masked points are fully present in the
+        # progressive encoding (the mask only overlays their exact values),
+        # so serving the un-patched reconstruction under the plane bound
+        # stays certified; only the eb_array's exact-point zeros are lost
+        self._pinned: Dict[str, BaseException] = {}
+
+    def get(self, name: str) -> Optional[OutlierMask]:
+        if name not in self._specs or name in self._pinned:
+            return None
+        if name not in self._cache:
+            spec = self._specs[name]
+            shape = tuple(spec["shape"])
+            try:
+                bitmap = self._fetcher.fetch(f"{name}/mask/bitmap")
+                # a writable copy: torch wraps it for the device transfer
+                values = np.frombuffer(
+                    self._fetcher.fetch(f"{name}/mask/values"),
+                    dtype=np.float64, count=spec["n_true"]).copy()
+            except Exception as e:
+                self._pinned[name] = e
+                return None
+            mask = np.unpackbits(
+                np.frombuffer(bitmap, dtype=np.uint8),
+                count=int(np.prod(shape))).astype(bool).reshape(shape)
+            self._cache[name] = OutlierMask(mask=mask, values=values)
+        return self._cache[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._specs
+
+    def __getitem__(self, name: str) -> OutlierMask:
+        m = self.get(name)
+        if m is None:
+            raise KeyError(name)
+        return m
+
+    def keys(self):
+        return self._specs.keys()
+
+    def values(self):
+        return [self[k] for k in self._specs]
+
+
+StoreSpec = Union[ByteStore, Dict[str, ByteStore],
+                  Callable[[str], ByteStore]]
+
+
+def _parse_segment_index(manifest: dict, payload_offset: int,
+                         with_depth: bool = True
+                         ) -> Dict[str, SegmentEntry]:
+    """v3 entries are (blob, offset, size, crc, codec); v2 drop the codec
+    field; v1 are (offset, size, crc) with an implicit single blob ``""``
+    — all three parse (codec stays None on v1/v2, whose payloads are
+    self-describing through the legacy tag bytes).  ``payload_offset``
+    shifts only the single-file blob (whose payload follows the in-file
+    manifest).  ``with_depth=False`` skips the per-key depth parse — depth
+    is cache eviction metadata, dead weight on a cache-less open."""
+    index: Dict[str, SegmentEntry] = {}
+    for key, entry in manifest["segments"].items():
+        codec = None
+        if len(entry) == 5:
+            blob, off, size, crc, codec = entry
+        elif len(entry) == 4:
+            blob, off, size, crc = entry
+        else:
+            blob, (off, size, crc) = "", entry
+        index[key] = SegmentEntry(
+            offset=off + (payload_offset if blob == "" else 0),
+            size=size, crc=crc, blob=blob,
+            depth=segment_depth(key) if with_depth else 0,
+            codec=codec)
+    return index
+
+
+def manifest_archive_id(manifest: dict) -> str:
+    """Stable id grouping one archive's cache entries for per-archive
+    budgets: a hash of the canonical manifest JSON, so every session over
+    the same container (local, re-opened, or remote) lands in the same
+    budget group while distinct archives never collide on id *and* crc."""
+    blob = json.dumps(manifest, sort_keys=True).encode("utf-8")
+    return f"prs-{zlib.crc32(blob):08x}-{len(blob)}"
+
+
+class StoreArchive:
+    """An hb archive whose segments live on one or more ByteStores;
+    ``open()`` returns a regular RetrievalSession streaming through the
+    SegmentFetcher and decoding on ``device``.
+
+    ``store`` may be a single ByteStore (single-blob containers), a mapping
+    ``blob name -> ByteStore`` (sharded, backends may differ per shard), or
+    a resolver callable ``blob name -> ByteStore`` invoked lazily on first
+    touch — sessions that never read a shard never open (or require) it.
+    ``cache`` is an optional cross-session `SegmentCache`.
+    """
+
+    def __init__(self, manifest: dict, store: StoreSpec,
+                 device: DeviceLike = None,
+                 payload_offset: int = 0, prefetch_workers: int = 2,
+                 verify: bool = True,
+                 cache: Optional[SegmentCache] = None,
+                 archive_id: Optional[str] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 quarantine: Optional[BlobQuarantine] = None):
+        self.device = resolve_device(device)
+        _check_ported(manifest)
+        self.manifest = manifest
+        self.method: str = manifest["method"]
+        self.ranges: Dict[str, float] = dict(manifest["ranges"])
+        self.shapes: Dict[str, Tuple[int, ...]] = {
+            k: tuple(v) for k, v in manifest["shapes"].items()}
+        # the id only matters as a cache grouping key: derive it eagerly
+        # only when a cache will consume it
+        if archive_id is None and cache is not None:
+            archive_id = manifest_archive_id(manifest)
+        self._archive_id = archive_id
+        index = _parse_segment_index(manifest, payload_offset,
+                                     with_depth=cache is not None)
+        # store-backed sessions get the hardened fault-tolerance defaults:
+        # retries with jittered backoff, and a circuit breaker whose
+        # threshold sits above one segment's full retry budget
+        if retry_policy is None:
+            retry_policy = RetryPolicy()
+        if quarantine is None:
+            quarantine = BlobQuarantine(
+                threshold=2 * retry_policy.max_attempts)
+        self.retry_policy = retry_policy
+        self.quarantine = quarantine
+        self.fetcher = SegmentFetcher(index, store,
+                                      prefetch_workers=prefetch_workers,
+                                      verify=verify, cache=cache,
+                                      archive_id=archive_id or "",
+                                      retry_policy=retry_policy,
+                                      quarantine=quarantine)
+        self.masks = _LazyMasks(manifest["masks"], self.fetcher)
+        self.variables: Dict[str, StoreBitplaneVar] = {
+            name: StoreBitplaneVar(name, spec, self.fetcher)
+            for name, spec in manifest["variables"].items()}
+
+    @property
+    def archive_id(self) -> str:
+        if self._archive_id is None:
+            self._archive_id = manifest_archive_id(self.manifest)
+        return self._archive_id
+
+    @property
+    def cache(self) -> Optional[SegmentCache]:
+        return self.fetcher.cache
+
+    @property
+    def total_nbytes(self) -> int:
+        return sum(e.size for e in self.fetcher.index.values())
+
+    def codec_bytes(self) -> Dict[str, int]:
+        """Encoder-side codec choice: archived bytes per entropy codec,
+        straight from the manifest (no payload reads).  v1/v2 archives
+        report everything as ``untagged``."""
+        out: Dict[str, int] = {}
+        for e in self.fetcher.index.values():
+            name = codec_name(e.codec)
+            out[name] = out.get(name, 0) + e.size
+        return out
+
+    def n_elements(self, name: str) -> int:
+        return int(np.prod(self.shapes[name]))
+
+    def open(self, options: Optional[SessionOptions] = None
+             ) -> RetrievalSession:
+        return RetrievalSession(self, options)
+
+    def close(self) -> None:
+        self.fetcher.close()
+        self.fetcher.close_stores()
+
+    def __enter__(self) -> "StoreArchive":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def is_url(source: str) -> bool:
+    return source.startswith(("http://", "https://"))
+
+
+def open_archive(source, options: Optional[OpenOptions] = None,
+                 device: DeviceLike = None) -> StoreArchive:
+    """Open a container — single-file, sharded, local, or over HTTP — whose
+    sessions decode on ``device`` (default CUDA; raises without it unless
+    ``device="cpu"``).
+
+    ``source`` may be:
+
+      * a ``.prs`` file path — manifest parsed from the file head, segment
+        reads through a mmap'd FileByteStore;
+      * a directory (or explicit ``manifest.json`` path) — sharded archive;
+        blobs default to FileByteStores next to the manifest;
+      * an ``http(s)://`` URL — of a ``manifest.json`` (sharded; blobs
+        default to HTTPByteStores resolved relative to the manifest URL) or
+        of a single ``.prs`` resource (ranged GETs through HTTPByteStore);
+      * a manifest dict — blobs come from ``options.blob_resolver``;
+      * an already-constructed ByteStore — the container header is read
+        through the store, so its transfer is accounted like any other read.
+
+    ``options`` is an :class:`repro_torch.options.OpenOptions` bundling the
+    transport/integrity knobs.
+    """
+    dev = resolve_device(device)
+    opts = options if options is not None else OpenOptions()
+    blob_resolver = opts.blob_resolver
+
+    def build(manifest: dict, default: Optional[StoreSpec],
+              payload_offset: int = 0) -> StoreArchive:
+        return StoreArchive(manifest, blob_resolver or default, device=dev,
+                            payload_offset=payload_offset,
+                            prefetch_workers=opts.prefetch_workers,
+                            verify=opts.verify, cache=opts.cache,
+                            archive_id=opts.archive_id,
+                            retry_policy=opts.retry_policy,
+                            quarantine=opts.quarantine)
+
+    def http_store(url: str, **kw) -> HTTPByteStore:
+        if opts.retry_policy is not None:
+            kw["retry_policy"] = opts.retry_policy
+        return HTTPByteStore(url, **kw)
+
+    if isinstance(source, dict):
+        if blob_resolver is None:
+            raise ValueError("a manifest dict needs a blob_resolver")
+        return build(source, None)
+
+    if isinstance(source, str) and is_url(source):
+        # detect on the parsed path, not the raw string — signed /
+        # parameterized URLs carry query strings after the filename
+        if urllib.parse.urlsplit(source).path.endswith(".json"):
+            with http_store(source) as ms:
+                manifest = json.loads(ms.read_all().decode("utf-8"))
+            # blob sizes are recorded in the manifest, so shard stores skip
+            # their HEAD probe (one GET per first-touched shard)
+            blob_sizes = manifest.get("blobs", {})
+            return build(manifest, lambda blob: http_store(
+                urllib.parse.urljoin(source, blob),
+                size=blob_sizes.get(blob)))
+        source = http_store(source)
+
+    if isinstance(source, str):
+        if os.path.isdir(source) or source.endswith(".json"):
+            mpath = source if source.endswith(".json") \
+                else os.path.join(source, MANIFEST_NAME)
+            with open(mpath, "rb") as fh:
+                manifest = json.loads(fh.read().decode("utf-8"))
+            root = os.path.dirname(os.path.abspath(mpath))
+            return build(manifest, lambda blob: FileByteStore(
+                os.path.join(root, blob)))
+        source = FileByteStore(source)
+
+    # single-blob container: parse the header through the store itself
+    store = source
+    try:
+        head = store.read(0, len(MAGIC) + 8)
+        if head[:len(MAGIC)] != MAGIC:
+            raise ValueError("bad magic: not a PRSTORE container")
+        (mlen,) = struct.unpack("<Q", head[len(MAGIC):])
+        manifest = json.loads(
+            store.read(len(MAGIC) + 8, mlen).decode("utf-8"))
+        spec: StoreSpec = store if blob_resolver is None else (
+            lambda blob: store if blob == "" else blob_resolver(blob))
+        return StoreArchive(manifest, spec, device=dev,
+                            payload_offset=len(MAGIC) + 8 + mlen,
+                            prefetch_workers=opts.prefetch_workers,
+                            verify=opts.verify, cache=opts.cache,
+                            archive_id=opts.archive_id,
+                            retry_policy=opts.retry_policy,
+                            quarantine=opts.quarantine)
+    except BaseException:
+        store.close()
+        raise
+
+
+def memory_store_archive(archive: Archive,
+                         options: Optional[OpenOptions] = None,
+                         shard_by: str = "single",
+                         device: DeviceLike = None) -> StoreArchive:
+    """Round an in-memory Archive through the container format without
+    touching disk (tests, benchmarks); sessions decode on ``device``
+    (default CUDA).  ``shard_by`` exercises the sharded manifest with one
+    MemoryByteStore per blob."""
+    opts = options if options is not None else OpenOptions()
+    dev = resolve_device(device)
+    manifest, payloads = build_sharded_container(archive, shard_by=shard_by)
+    manifest = json.loads(json.dumps(manifest))   # exact same path as disk
+    stores = {blob: MemoryByteStore(data) for blob, data in payloads.items()}
+    spec: StoreSpec = stores if shard_by != "single" else stores.get(
+        "", MemoryByteStore(b""))
+    return StoreArchive(manifest, spec, device=dev,
+                        prefetch_workers=opts.prefetch_workers,
+                        verify=opts.verify, cache=opts.cache,
+                        archive_id=opts.archive_id,
+                        retry_policy=opts.retry_policy,
+                        quarantine=opts.quarantine)
