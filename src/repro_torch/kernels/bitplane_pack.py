@@ -7,7 +7,7 @@ Replaces the Pallas kernel ``repro/kernels/bitplane_pack.py::_kernel``
 and runs twice, on hi and lo uint32 words, for 48-bit magnitudes.  The CUDA
 kernel is ``bitplane_encode`` in ``csrc/bitplane.cu``; its note there says
 what bounds it on an H100 (bytes: 8 B read, nbits/8 B written per
-coefficient) and how its warp-ballot design follows from that.
+coefficient) and how its warp bit-transpose design follows from that.
 
 :func:`bitplane_pack` launches the kernel for a CUDA tensor and runs the
 plain version :func:`bitplane_pack_plain` for a CPU tensor; for any other

@@ -149,6 +149,52 @@ def test_decode_values_fused_matches_jax(n, nplanes):
                                           _f64_bits(jvals))
 
 
+def _general_shifts(kind, nplanes, rng):
+    """Shifts that are not one descending run (the CUDA decode kernel's
+    general path): distinct with holes in random order, every value twice,
+    or all >= 32 with 63 among them."""
+    if kind == "holes":
+        s = rng.permutation(64)[:nplanes]
+    elif kind == "duplicates":
+        s = rng.integers(0, 64, nplanes)
+        s[nplanes // 2:] = s[: nplanes - nplanes // 2]
+    else:
+        s = rng.integers(32, 64, nplanes)
+        s[0] = 63
+    return s.astype(np.int64)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("kind", ("holes", "duplicates", "high"))
+def test_decode_values_fused_general_shifts_match_jax(n, kind):
+    """The plain decode that the CUDA kernel's general shift path is held
+    to on the card, against the JAX package: shifts out of order, with
+    holes, duplicated, and up to 63 (bit 63 set: the magnitude is
+    unsigned), with and without carry-in."""
+    rng = np.random.default_rng(13 * n + len(kind))
+    nwords = (n + 31) // 32
+    scale = 2.0 ** -37
+    sb = rng.integers(0, 256, size=(n + 7) // 8).astype(np.uint8)
+    for nplanes in (2, 33, 64):
+        words = rng.integers(0, 2 ** 32, size=(nplanes, nwords),
+                             dtype=np.uint64).astype(np.uint32)
+        shifts = _general_shifts(kind, nplanes, rng)
+        assert any(int(s) != int(shifts[0]) - j for j, s in enumerate(shifts))
+        for state in (None, rng.integers(0, 2 ** 62, size=n, dtype=np.int64)):
+            jmag, jvals = jops.decode_values_fused(
+                words, shifts,
+                None if state is None else state.astype(np.uint64), sb,
+                scale, n)
+            mag, vals = ops.decode_values_fused(
+                words, shifts, None if state is None
+                else torch.from_numpy(state), sb, scale, n,
+                torch.device("cpu"))
+            np.testing.assert_array_equal(
+                mag.numpy(), np.asarray(jmag).astype(np.int64))
+            np.testing.assert_array_equal(_f64_bits(vals.numpy()),
+                                          _f64_bits(jvals))
+
+
 def test_zero_planes_are_a_no_op_copy_of_state():
     state = torch.arange(64, dtype=torch.int64) * 12345
     words = torch.zeros((0, 2), dtype=torch.int32)
