@@ -58,6 +58,8 @@ class PlaneGroupMeta:
     nbits: int
     plane_sizes: Tuple[int, ...]   # encoded bytes per plane, MSB-first
     sign_size: int
+    pred_planes: Optional[int] = None  # `ip` only: planes folded into the
+                                       # encoder's closed-loop prediction
 
 
 @dataclass
@@ -69,6 +71,7 @@ class LevelBitplanes:
     planes: List[bytes]            # tagged packed-word planes, MSB-first
     plane_raw_bits: int            # uncompressed bits per plane (= count)
     signs: bytes                   # codec-tagged packbits(c < 0)
+    pred_planes: Optional[int] = None  # see PlaneGroupMeta.pred_planes
     _crcs: Optional[Tuple[Tuple[int, ...], int]] = field(
         default=None, repr=False, compare=False)
 
@@ -82,7 +85,8 @@ class LevelBitplanes:
         return PlaneGroupMeta(count=self.count, exponent=self.exponent,
                               nbits=self.nbits,
                               plane_sizes=tuple(len(p) for p in self.planes),
-                              sign_size=len(self.signs))
+                              sign_size=len(self.signs),
+                              pred_planes=self.pred_planes)
 
     def segment_crcs(self) -> Tuple[Tuple[int, ...], int]:
         """(per-plane crc32c, sign crc32c), computed on first use: the store

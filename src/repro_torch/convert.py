@@ -8,14 +8,17 @@ the port this way, so both packages retrieve from the very same bytes.
 
 Layout::
 
-    {"method": "hb",
+    {"method": "hb" | "ob" | "ip",
      "shapes": {name: tuple}, "ranges": {name: float},
      "masks": {name: {"mask": bool array, "values": float64 array}},
      "variables": {name: {"orig_shape": tuple, "padded_shape": tuple,
                           "levels": int, "group_indices": [int64 array],
                           "groups": [{"count": int, "exponent": int | None,
                                       "nbits": int, "planes": [bytes],
-                                      "signs": bytes}]}}}
+                                      "signs": bytes,
+                                      "pred_planes": int | None}]}}}
+
+``pred_planes`` (the ip method's prediction depth) may be left out.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ def archive_from_arrays(d: Dict[str, Any], device: DeviceLike = None
                                  nbits=int(g["nbits"]),
                                  planes=[bytes(p) for p in g["planes"]],
                                  plane_raw_bits=int(g["count"]),
-                                 signs=bytes(g["signs"]))
+                                 signs=bytes(g["signs"]),
+                                 pred_planes=g.get("pred_planes"))
                   for g in v["groups"]]
         variables[name] = BitplaneVarArchive(
             method=d["method"], orig_shape=tuple(v["orig_shape"]),
@@ -81,6 +85,8 @@ def archive_to_arrays(archive) -> Dict[str, Any]:
                                      for i in v.group_indices],
                    "groups": [{"count": g.count, "exponent": g.exponent,
                                "nbits": g.nbits, "planes": list(g.planes),
-                               "signs": g.signs} for g in v.groups]}
+                               "signs": g.signs,
+                               "pred_planes": g.pred_planes}
+                              for g in v.groups]}
             for name, v in archive.variables.items()},
     }

@@ -1,6 +1,14 @@
 """The GE CFD case-study QoIs, paper Eq. (1)-(6), built from derivable bases
 (copy of ``repro/core/ge.py`` over the port's expression tree).
 
+Two nodes differ from the defaults in which product of their bound's
+first add is fused, as the reference's compiled evaluation does it
+(``core/estimators.py``, ROADMAP C3): the quotient of the Mach number
+inside the loose total pressure, and the outer product of the viscosity.
+These placements were observed for these six trees only; a tree built
+elsewhere gets the defaults and is held to the reference within a stated
+tolerance, not bit for bit (ROADMAP C3).
+
 Variables: velocity Vx, Vy, Vz, pressure P, density D (paper §III-A).
 The decompositions mirror §IV-D: e.g. PT = P · (1 + γ/2·Mach²)^3.5 becomes
 Prod(P, frac_pow(...)) with frac_pow composed as x³·√x.
@@ -52,8 +60,11 @@ def mach(tight: bool = False) -> Expr:
 
 
 def total_pressure(tight: bool = False) -> Expr:
-    """Eq. (5): PT = P · (1 + γ/2 · Mach²)^3.5."""
-    inner = scale(square(mach(tight=tight)), GAMMA / 2.0, const=1.0)
+    """Eq. (5): PT = P · (1 + γ/2 · Mach²)^3.5.  The Mach quotient inside
+    is ``mach(tight)`` but for the loose tree's fused product."""
+    m = Quot(v_total(tight=tight), sound_speed(tight=tight),
+             fuse_right=not tight)
+    inner = scale(square(m), GAMMA / 2.0, const=1.0)
     return Prod(Var("P"), frac_pow(inner, MI, tight=tight))
 
 
@@ -62,7 +73,8 @@ def viscosity(tight: bool = False) -> Expr:
               = [mu_r (Tr+S) / Tr^1.5] · T^1.5 · 1/(T+S)."""
     t = temperature()
     const = MU_R * (T_R + S) / (T_R ** 1.5)
-    return scale(Prod(frac_pow(t, 1.5, tight=tight), Radical(t, c=S)), const)
+    return scale(Prod(frac_pow(t, 1.5, tight=tight), Radical(t, c=S),
+                      fuse_right=False), const)
 
 
 def all_qois(tight: bool = False) -> Dict[str, Expr]:

@@ -1,9 +1,20 @@
-"""Algorithm 1 (refactor) and the progressive reader for the hb method, on
-tensors.
+"""Algorithm 1 (refactor) and the progressive reader for the bitplane
+methods, on tensors.
 
-Counterpart of ``repro/core/refactor.py`` for PMGARD-HB (hierarchical-basis
-multilevel transform + bitplanes, the paper's preferred method).  The other
-representations (ob, ip, psz3, psz3_delta) are later slices of the port.
+Counterpart of ``repro/core/refactor.py`` for its three bitplane
+representations:
+
+  * "hb"  PMGARD-HB: hierarchical-basis multilevel + bitplanes (the paper's
+          preferred method — tight Σ_l e_l bound);
+  * "ob"  PMGARD (orthogonal basis): + L² projection, loose bound, levels
+          coupled, so the reader recomposes from scratch;
+  * "ip"  interpolation-predicted: closed-loop residuals against the
+          decoder's truncated reconstruction; max_g e_g bound once every
+          group reaches its recorded prediction depth
+          (``transform/hierarchical.py``, ip section).
+
+The SZ-like snapshot ladders (psz3, psz3_delta) are not ported yet
+(ROADMAP A8).
 
 Where things live: the archive's plane bytes are host data (the entropy
 stage is numpy/zlib, as in the reference); the transform, the codec kernels,
@@ -42,6 +53,7 @@ import torch
 
 from repro_torch.bitplane.encoder import (
     LevelBitplanes,
+    decode_prefix,
     encode_level,
     plane_bound,
     planes_needed,
@@ -54,16 +66,31 @@ from repro_torch.transform.hierarchical import (
     decompose_hb,
     grid_levels,
     hb_error_bound,
+    ip_error_bound,
     level_map,
     pad_to_grid,
+    recompose_hb,
     scatter_recompose_from,
+    scatter_recompose_ip_from,
     unpad,
 )
+from repro_torch.transform.orthogonal import (
+    decompose_ob,
+    ob_kappa,
+    recompose_ob,
+)
 
-METHODS = ("hb",)
+METHODS = ("hb", "ob", "ip")
 # methods of the reference not ported yet, and the ROADMAP item that ports
 # them
-_NOT_PORTED = {"ob": "A8", "ip": "A8", "psz3": "A8", "psz3_delta": "A8"}
+_NOT_PORTED = {"psz3": "A8", "psz3_delta": "A8"}
+
+
+def _pred_planes(meta) -> int:
+    """Recorded ip prediction depth of a group; groups without one (hb and
+    ob groups) default to full depth, where the truncation is the
+    identity."""
+    return meta.pred_planes if meta.pred_planes is not None else meta.nbits
 
 
 @dataclass(frozen=True)
@@ -124,8 +151,8 @@ class ContribStats:
 
 @dataclass
 class BitplaneVarArchive:
-    """PMGARD-HB: per-level bitplane groups over the multilevel transform."""
-    method: str                    # "hb"
+    """Per-level bitplane groups over the multilevel transform."""
+    method: str                    # "hb" | "ob" | "ip"
     orig_shape: Tuple[int, ...]
     padded_shape: Tuple[int, ...]
     levels: int
@@ -196,27 +223,79 @@ def refactor_variables(fields: Dict[str, np.ndarray],
         shapes[name] = data.shape
         rng = float(np.max(data) - np.min(data))
         ranges[name] = rng if rng > 0 else 1.0
-        variables[name] = _build_bitplane_var(data, nbits, max_levels, dev)
+        variables[name] = _build_bitplane_var(data, method, nbits,
+                                              max_levels, dev)
     return Archive(method=method, variables=variables, masks=masks,
                    ranges=ranges, shapes=shapes, device=dev)
 
 
-def _build_bitplane_var(data: np.ndarray, nbits: int, max_levels: int,
+def _build_bitplane_var(data: np.ndarray, method: str, nbits: int,
+                        max_levels: int,
                         device: torch.device) -> BitplaneVarArchive:
     padded, orig_shape = pad_to_grid(data)
     levels = grid_levels(padded.shape, max_levels)
-    coeffs = decompose_hb(torch.from_numpy(padded).to(device), levels)
-    flat = coeffs.reshape(-1)
-    lmap = level_map(padded.shape, levels).ravel()
-    groups, indices = [], []
-    for l in range(levels + 1):      # details 0..L-1, base = L
-        idx = np.flatnonzero(lmap == l)
-        groups.append(encode_level(flat[torch.from_numpy(idx).to(device)],
-                                   nbits=nbits))
-        indices.append(idx)
-    return BitplaneVarArchive(method="hb", orig_shape=orig_shape,
+    x = torch.from_numpy(padded).to(device)
+    if method == "ip":
+        groups, indices = _encode_ip_groups(x, levels, nbits)
+    else:
+        transform = decompose_hb if method == "hb" else decompose_ob
+        flat = transform(x, levels).reshape(-1)
+        lmap = level_map(padded.shape, levels).ravel()
+        groups, indices = [], []
+        for l in range(levels + 1):      # details 0..L-1, base = L
+            idx = np.flatnonzero(lmap == l)
+            groups.append(encode_level(
+                flat[torch.from_numpy(idx).to(device)], nbits=nbits))
+            indices.append(idx)
+    return BitplaneVarArchive(method=method, orig_shape=orig_shape,
                               padded_shape=padded.shape, levels=levels,
                               groups=groups, group_indices=indices)
+
+
+def _encode_ip_groups(x: torch.Tensor, levels: int, nbits: int
+                      ) -> Tuple[List[LevelBitplanes], List[np.ndarray]]:
+    """Closed-loop interpolation-predicted encoding (method "ip") of the
+    padded field ``x``, on its device.
+
+    Groups are encoded base-first: each group's coefficients are the
+    residual of the original nodal values against the running sum of the
+    coarser groups' *decoder* contributions — the same prefix decode, the
+    same truncated scatter + recompose and the same float64 accumulation
+    order that the reader replays — so once every group is fetched to its
+    recorded ``pred_planes`` the decoder's prediction is the encoder's, bit
+    for bit, and the bound is max_g e_g.
+
+    ``pred_planes`` comes from one absolute truncation target θ =
+    amax_min / (2·(levels+1)) (amax_min: the smallest nonzero per-group hb
+    surplus scale): kp = ceil(E_g - log2 θ)."""
+    shape, dev = tuple(x.shape), x.device
+    lmap = level_map(shape, levels).ravel()
+    indices = [np.flatnonzero(lmap == l) for l in range(levels + 1)]
+    idx_dev = [torch.from_numpy(i).to(dev) for i in indices]
+    hb = decompose_hb(x, levels).reshape(-1)
+    amaxes = [float(hb[i].abs().max()) if i.numel() else 0.0
+              for i in idx_dev]
+    nonzero = [a for a in amaxes if a > 0.0]
+    theta = min(nonzero) / (2.0 * (levels + 1)) if nonzero else 0.0
+    x_flat = x.reshape(-1)
+    total = torch.zeros(shape, dtype=F64, device=dev)
+    groups: List[LevelBitplanes] = [None] * (levels + 1)
+    for l in range(levels, -1, -1):      # base first — prediction order
+        idx = idx_dev[l]
+        lbp = encode_level(x_flat[idx] - total.reshape(-1)[idx],
+                           nbits=nbits)
+        if lbp.exponent is not None:
+            kp = nbits
+            if theta > 0.0:
+                kp = int(np.clip(int(np.ceil(lbp.exponent - np.log2(theta))),
+                                 0, nbits))
+            lbp.pred_planes = kp
+            if l > 0 and kp > 0:
+                total += scatter_recompose_ip_from(
+                    idx, decode_prefix(lbp, kp, dev), shape, levels,
+                    min(l, levels - 1), 2.0 ** (lbp.exponent - kp))
+        groups[l] = lbp
+    return groups, indices
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +304,7 @@ def _build_bitplane_var(data: np.ndarray, nbits: int, max_levels: int,
 
 
 class _BitplaneVarReader:
-    """Progressive reader over one hb variable, decoding on ``device``: an
+    """Progressive reader over one bitplane variable, decoding on ``device``: an
     in-memory `BitplaneVarArchive` or a store-backed
     `repro_torch.store.StoreBitplaneVar` (same surface: shapes, levels,
     groups, group_indices, plane_sources); planes arrive through each
@@ -248,6 +327,7 @@ class _BitplaneVarReader:
                         for src in var.plane_sources()]
         self._idx_dev: Dict[int, torch.Tensor] = {}
         self._recon: Optional[torch.Tensor] = None
+        self._full_state: Tuple[int, ...] = ()
         # one cached contribution field per coefficient group, keyed by the
         # fetched-plane count it was computed at (-1 = never computed)
         ngroups = var.levels + 1
@@ -278,20 +358,70 @@ class _BitplaneVarReader:
 
     def _budgets(self, eps: float) -> List[float]:
         """Split the variable's L-inf budget across coefficient groups so
-        the HB bound Σ_l e_l meets eps, size-weighted (e_l ∝ n_l minimises
-        the total plane bits)."""
+        the method's composition bound meets eps, size-weighted (e_l ∝ n_l
+        minimises the total plane bits); ob divides the detail budgets by
+        (1 + κ), as its bound amplifies them."""
         counts = np.asarray([g.count for g in self.var.groups], dtype=float)
         weights = counts / counts.sum()
-        return [eps * w for w in weights]
+        if self.var.method in ("hb", "ip"):
+            return [eps * w for w in weights]
+        kappa = ob_kappa(len(self.var.padded_shape))
+        return [eps * w / (1.0 + kappa) for w in weights[:-1]] \
+            + [eps * weights[-1]]
+
+    def _ip_quantum(self, l: int) -> float:
+        """Group ``l``'s prediction quantum 2^{E-kp} (0.0 for an all-zero
+        group — no truncation)."""
+        m = self.streams[l].meta
+        if m.exponent is None:
+            return 0.0
+        return 2.0 ** (m.exponent - _pred_planes(m))
+
+    def _ip_mismatches(self, depths: List[int]) -> List[float]:
+        """Per-group prediction mismatch δ_g at the given plane depths (0
+        once the depth reaches the recorded ``pred_planes``)."""
+        out = []
+        for s, k in zip(self.streams, depths):
+            m = s.meta
+            kp = _pred_planes(m)
+            if m.exponent is None or k >= kp:
+                out.append(0.0)
+            else:
+                out.append(2.0 ** (m.exponent - k) - 2.0 ** (m.exponent - kp))
+        return out
 
     def _plane_targets(self, eps: float) -> List[int]:
         """Per-group plane targets for a request at ``eps`` — a pure
-        function of (eps, static group metadata), never of fetch state."""
-        return [planes_needed(s.meta, b)
-                for s, b in zip(self.streams, self._budgets(eps))]
+        function of (eps, static group metadata), never of fetch state.
+        hb/ob: the size-weighted eps split.  ip picks the cheaper, by
+        from-zero bytes, of (A) the hb-style split, bound Σ_g e_g, and (B)
+        every group to max(pred_planes, planes_needed(eps)), bound
+        max_g e_g."""
+        metas = [s.meta for s in self.streams]
+        ka = [planes_needed(m, b) for m, b in zip(metas, self._budgets(eps))]
+        if self.var.method != "ip":
+            return ka
+        kb = [max(_pred_planes(m), planes_needed(m, eps))
+              if m.exponent is not None else 0 for m in metas]
+
+        def cost(ks):
+            return sum(sum(m.plane_sizes[:k]) + (m.sign_size if k else 0)
+                       for m, k in zip(metas, ks))
+
+        return kb if cost(kb) <= cost(ka) else ka
+
+    def _compose(self, bounds: List[float], depths: List[int]) -> float:
+        """The method's L-inf bound from per-group bounds at ``depths``."""
+        if self.var.method == "hb":
+            return hb_error_bound(bounds)
+        if self.var.method == "ip":
+            return ip_error_bound(bounds, self._ip_mismatches(depths))
+        kappa = ob_kappa(len(self.var.padded_shape))
+        return float((1.0 + kappa) * np.sum(bounds[:-1]) + bounds[-1])
 
     def achieved_bound(self) -> float:
-        return hb_error_bound([s.bound for s in self.streams])
+        return self._compose([s.bound for s in self.streams],
+                             [s.fetched for s in self.streams])
 
     @property
     def is_degraded(self) -> bool:
@@ -302,11 +432,12 @@ class _BitplaneVarReader:
     def availability_floor(self) -> float:
         """Tightest bound certifiable from the deliverable plane prefixes:
         each group contributes its bound at the deepest reachable plane
-        (the pin for degraded groups, full depth otherwise), summed like
+        (the pin for degraded groups, full depth otherwise), composed like
         ``achieved_bound``."""
-        return hb_error_bound([
-            plane_bound(s.meta, s.meta.nbits if s.pinned is None
-                        else s.pinned) for s in self.streams])
+        depths = [s.meta.nbits if s.pinned is None else s.pinned
+                  for s in self.streams]
+        return self._compose([plane_bound(s.meta, d)
+                              for s, d in zip(self.streams, depths)], depths)
 
     def availability(self) -> VarAvailability:
         detail = ""
@@ -321,8 +452,52 @@ class _BitplaneVarReader:
     def request(self, eps: float) -> Tuple[torch.Tensor, float]:
         for s, k in zip(self.streams, self._plane_targets(eps)):
             s.fetch_to_planes(k)
-        self._refresh_hb_incremental()
+        if self.var.method == "ob":
+            self._refresh_full()
+        else:
+            self._refresh_hb_incremental()
         return self._recon, self.achieved_bound()
+
+    def reconstruct_at_resolution(self, coarsen: int, eps: float
+                                  ) -> Tuple[torch.Tensor, float]:
+        """Progression in resolution (paper §II): reconstruct the
+        2^coarsen-strided sub-grid from the coarser groups only — detail
+        levels 0..coarsen-1 are never moved.  Returns the coarse field and
+        its bound relative to the true coarse-grid values.  hb and ip only:
+        ob's projection mixes finer details into coarse nodal values."""
+        if self.var.method not in ("hb", "ip"):
+            raise ValueError("resolution progression requires method='hb' "
+                             "or method='ip'")
+        levels = self.var.levels
+        coarsen = int(np.clip(coarsen, 0, levels))
+        active = list(range(coarsen, levels + 1))   # coarser details + base
+        targets = self._plane_targets(eps)
+        for l in active:
+            self.streams[l].fetch_to_planes(targets[l])
+        if self.var.method == "ip":
+            # ip is defined by the fixed-order contribution sum
+            rec = torch.zeros(self.var.padded_shape, dtype=F64,
+                              device=self.device)
+            for l in range(levels, coarsen - 1, -1):
+                rec += self._compute_contrib(l)
+        else:
+            flat = torch.zeros(int(np.prod(self.var.padded_shape)),
+                               dtype=F64, device=self.device)
+            for l in active:
+                flat[self._group_idx_dev(l)] = self.streams[l].values()
+            rec = recompose_hb(flat.reshape(self.var.padded_shape), levels)
+        full = unpad(rec, self.var.orig_shape)
+        coarse = full[tuple(slice(None, None, 1 << coarsen)
+                            for _ in self.var.orig_shape)]
+        # coarse nodes never receive finer-level contributions, so only the
+        # active groups' bounds apply
+        bounds = [self.streams[l].bound for l in active]
+        if self.var.method == "ip":
+            mism = self._ip_mismatches([s.fetched for s in self.streams])
+            achieved = ip_error_bound(bounds, [mism[l] for l in active])
+        else:
+            achieved = float(np.sum(bounds))
+        return coarse, achieved
 
     def prefetch_eps(self, eps: float, certain: bool = True) -> None:
         """Hint that a request at ``eps`` is coming: split the budget exactly
@@ -347,8 +522,15 @@ class _BitplaneVarReader:
         s = self.streams[l]
         if s.fetched == 0:
             return torch.zeros(shape, dtype=F64, device=self.device)
+        start = min(l, levels - 1)       # base group (index L) needs all steps
+        if self.var.method == "ip":
+            # the truncated part seeds the finer groups' prediction; the
+            # tail rides back in at the group's own nodes
+            return scatter_recompose_ip_from(self._group_idx_dev(l),
+                                             s.values(), shape, levels,
+                                             start, self._ip_quantum(l))
         return scatter_recompose_from(self._group_idx_dev(l), s.values(),
-                                      shape, levels, min(l, levels - 1))
+                                      shape, levels, start)
 
     def _refresh_hb_incremental(self) -> None:
         """Recompute only the contributions whose plane counts moved, then
@@ -387,6 +569,21 @@ class _BitplaneVarReader:
             else:
                 st.contrib_note(spills=1)
         self._recon = unpad(total, self.var.orig_shape)
+
+    def _refresh_full(self) -> None:
+        """ob: the L² corrections couple levels, so the reconstruction is
+        recomposed from scratch whenever any stream moved."""
+        state = self.state_signature()
+        if self._recon is not None and state == self._full_state:
+            return
+        flat = torch.zeros(int(np.prod(self.var.padded_shape)), dtype=F64,
+                           device=self.device)
+        for l, s in enumerate(self.streams):
+            flat[self._group_idx_dev(l)] = s.values()
+        self._recon = unpad(recompose_ob(flat.reshape(self.var.padded_shape),
+                                         self.var.levels),
+                            self.var.orig_shape)
+        self._full_state = state
 
     def state_signature(self) -> Tuple[int, ...]:
         """Decode state as the tuple of per-group fetched-plane counts; the
@@ -460,6 +657,13 @@ class RetrievalSession:
                 self._mask_charged[name] = True
             data = mask.apply(data)
         return data, achieved
+
+    def reconstruct_at_resolution(self, name: str, coarsen: int, eps: float
+                                  ) -> Tuple[torch.Tensor, float]:
+        """Progression in resolution (paper §II): the 2^coarsen-strided
+        sub-grid with an L-inf guarantee, moving only coarse-level segments
+        (hb and ip archives)."""
+        return self.readers[name].reconstruct_at_resolution(coarsen, eps)
 
     def eb_array(self, name: str, achieved: float) -> torch.Tensor:
         """Per-point error-bound tensor: achieved everywhere, 0 at exact

@@ -46,6 +46,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # vx, vy, vz, ex, ey, ez, n, dtype, val_out, bound_out, stream
         "qoi_vtotal": (_P, _P, _P, _D, _D, _D, _LL, _I, _P, _P, _P),
     },
+    "fma": {
+        # (pointer or null, value, stride) for a, b and c; n, out, stream
+        "fma_rn": (_P, _D, _LL, _P, _D, _LL, _P, _D, _LL, _LL, _P, _P),
+    },
+    "thomas": {
+        # n, cp_out, denom_out, stream
+        "thomas_factors": (_LL, _P, _P, _P),
+        # b, cp, denom, pre, n, post, out, stream
+        "thomas_solve": (_P, _P, _P, _LL, _LL, _LL, _P, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Archive containers for hb archives: manifest + segment payload(s),
-single-file or sharded.
+"""Archive containers for bitplane archives (hb, ob, ip): manifest +
+segment payload(s), single-file or sharded.
 
 Counterpart of ``repro/store/container.py``; the container format is the
 reference's, byte for byte, so either package opens what the other wrote.
@@ -15,7 +15,8 @@ ByteStores) holding ``manifest.json`` plus one payload blob per shard — per
 variable (``Vx.seg``) or per level group (``Vx.g0.seg``).
 
 The manifest carries the method, per-variable group metadata (counts,
-exponents, nbits, per-plane sizes), outlier-mask shapes and value ranges,
+exponents, nbits, per-plane sizes, and an ip group's ``pred_planes``),
+outlier-mask shapes and value ranges,
 plus a segment index mapping ``key -> (blob, offset, size, crc32c, codec)``
 (format v3).  v2 manifests carry ``(blob, offset, size, crc32c)`` and v1
 manifests ``(offset, size, crc32c)`` with an implicit single blob; all
@@ -30,9 +31,9 @@ move bytes: inflation, the host -> device copy and every kernel launch stay
 on the caller's thread and stream.  Reconstructions are bit-identical to an
 in-memory session at every requested bound.
 
-Only the hb method is ported: archives with ob/ip/psz3/psz3_delta
-variables raise ``NotImplementedError`` naming ROADMAP A8, and live
-(journaled, format v4) archives naming A9.
+Archives with psz3/psz3_delta (snapshot) variables raise
+``NotImplementedError`` naming ROADMAP A8, and live (journaled, format v4)
+archives naming A9.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from repro_torch.bitplane.encoder import PlaneGroupMeta
 from repro_torch.bitplane.segments import PlaneSource
 from repro_torch.core.masks import OutlierMask
 from repro_torch.core.refactor import (
+    METHODS,
     Archive,
     BitplaneVarArchive,
     RetrievalSession,
@@ -128,7 +130,7 @@ def _check_ported(manifest: dict) -> None:
             raise NotImplementedError(
                 f"{name}: timeseries variables are not ported to repro_torch "
                 f"yet (ROADMAP A9)")
-        if kind != "bitplane" or spec.get("method") != "hb":
+        if kind != "bitplane" or spec.get("method") not in METHODS:
             what = spec.get("method", "delta" if spec.get("delta")
                             else kind)
             raise NotImplementedError(
@@ -177,10 +179,13 @@ def _bitplane_var_manifest(name: str, var: BitplaneVarArchive,
         if g.exponent is not None:
             w.add(f"{name}/g{l}/signs", g.signs, crc=sign_crc,
                   codec=blob_codec_id(g.signs))
-        groups.append({"count": g.count, "exponent": g.exponent,
-                       "nbits": g.nbits,
-                       "plane_sizes": [len(p) for p in g.planes],
-                       "sign_size": len(g.signs)})
+        spec = {"count": g.count, "exponent": g.exponent,
+                "nbits": g.nbits,
+                "plane_sizes": [len(p) for p in g.planes],
+                "sign_size": len(g.signs)}
+        if g.pred_planes is not None:       # ip prediction depth
+            spec["pred_planes"] = g.pred_planes
+        groups.append(spec)
     return {"kind": "bitplane", "method": var.method,
             "orig_shape": list(var.orig_shape),
             "padded_shape": list(var.padded_shape),
@@ -295,7 +300,7 @@ class FetcherPlaneSource(PlaneSource):
 
 
 class StoreBitplaneVar:
-    """Store-backed hb variable: the reader-facing surface of
+    """Store-backed bitplane variable (hb, ob or ip): the reader-facing surface of
     `BitplaneVarArchive` (method, shapes, levels, groups, group_indices,
     plane_sources), with plane payloads left on the ByteStore."""
 
@@ -309,7 +314,8 @@ class StoreBitplaneVar:
             PlaneGroupMeta(count=g["count"], exponent=g["exponent"],
                            nbits=g["nbits"],
                            plane_sizes=tuple(g["plane_sizes"]),
-                           sign_size=g["sign_size"])
+                           sign_size=g["sign_size"],
+                           pred_planes=g.get("pred_planes"))
             for g in spec["groups"]]
         self._fetcher = fetcher
         self._indices: Optional[List[np.ndarray]] = None

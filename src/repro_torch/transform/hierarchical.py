@@ -1,7 +1,7 @@
 """PMGARD-HB multilevel decomposition (paper §V-B), on tensors.
 
-Counterpart of ``repro/transform/hierarchical.py`` for the hb method.  The
-grid helpers are numpy, copied as they are; the transform runs as plain
+Counterpart of ``repro/transform/hierarchical.py`` for the hb method and
+the ip method's truncated contributions.  The grid helpers are numpy, copied as they are; the transform runs as plain
 torch ops on the tensor's device, with the reference's op sequence kept
 exactly (``mid = 0.5 * (lo + hi)``, then ``view - pred`` / ``view + pred``,
 then ``where(mask, ...)``) and no fused ops that could contract into an FMA.
@@ -191,3 +191,66 @@ def scatter_recompose_from(idx: torch.Tensor, vals: torch.Tensor,
 def hb_error_bound(level_bounds: List[float]) -> float:
     """HB L-inf bound: Σ_l e_l (+ base bound, passed as last entry)."""
     return float(np.sum(level_bounds))
+
+
+# ---------------------------------------------------------------------------
+# Interpolation-predicted (`ip`) representation
+# ---------------------------------------------------------------------------
+#
+# The ip method codes each group's residual against the decoder's own
+# truncated reconstruction of all coarser groups.  Group g records
+# ``pred_planes`` (kp_g); the decoder's contribution of group g is
+#
+#     C_g = recompose_hb_from(scatter(T_g), levels, start=g)      (truncated
+#     C_g.ravel()[idx_g] += v̂_g - T_g                              + tail)
+#
+# with T_g = trunc(v̂_g, 2^{E_g - kp_g}).  Truncation to a power-of-two
+# quantum is exact in float64, and the identity for fetched depths k <= kp.
+# When every group is fetched to k_g >= kp_g the decoder's prediction
+# replays the encoder's bit for bit and the bound is max_g e_g; under-
+# fetched groups add δ_g = 2^{E-k} - 2^{E-kp} to the finer groups' bound
+# (``ip_error_bound``).
+
+
+def _sign(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: ±1, and a zero keeps its own sign."""
+    return torch.where(v == 0, v, torch.sign(v))
+
+
+def trunc_to_quantum(v: torch.Tensor, quantum: float) -> torch.Tensor:
+    """sign(v)·floor(|v|/q)·q — truncate toward zero to multiples of the
+    power-of-two quantum ``q``; exact in float64 (|v| is an integer
+    multiple m·q with m < 2^53).  ``q == 0`` is the identity."""
+    if quantum == 0.0:
+        return v
+    return _sign(v) * torch.floor(torch.abs(v) / quantum) * quantum
+
+
+def scatter_recompose_ip_from(idx: torch.Tensor, vals: torch.Tensor,
+                              shape: Tuple[int, ...], levels: int,
+                              start: int, quantum: float) -> torch.Tensor:
+    """ip counterpart of :func:`scatter_recompose_from`: truncate the
+    decoded values to the group's prediction quantum, scatter and partially
+    recompose the truncated part, then add the truncation tail back at the
+    group's own nodes (an exact no-op add of zeros when nothing was
+    truncated, as in the reference)."""
+    t = trunc_to_quantum(vals, quantum)
+    field = torch.zeros(int(np.prod(shape)), dtype=vals.dtype,
+                        device=vals.device)
+    field.index_copy_(0, idx, t)
+    out = _recompose_steps(field.reshape(shape), min(start, levels - 1))
+    out.view(-1).index_add_(0, idx, vals - t)
+    return out
+
+
+def ip_error_bound(level_bounds: List[float],
+                   mismatches: List[float]) -> float:
+    """ip L-inf bound, lists finest-first (last entry = base group): walking
+    coarse -> fine with the running mismatch m, max_g (e_g + m_g), m_g =
+    Σ_{g' coarser than g} δ_{g'}.  Always <= the hb bound."""
+    out = 0.0
+    m = 0.0
+    for e, d in zip(reversed(level_bounds), reversed(mismatches)):
+        out = max(out, float(e) + m)
+        m += float(d)
+    return float(out)

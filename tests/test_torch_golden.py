@@ -2,8 +2,9 @@
 by the JAX package) and decodes them bit for bit as recorded: v1
 (single-file, 3-tuple segments, untagged streams), v2 (sharded, 4-tuple) and
 v3 (sharded, codec-tagged 5-tuple), with their byte accounting and codec
-attribution.  The live v4 archive and the ``ip`` archive raise
-``NotImplementedError`` naming the ROADMAP items that port them.
+attribution, and the ``ip`` archive (v3 with ``pred_planes``).  The live v4
+archive raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.
 
 Reads the fixtures and the recorded expectations only; imports nothing of
 the JAX package.
@@ -16,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.refactor import refactor_variables  # noqa: E402
-from repro_torch.data.synthetic import ge_like_fields  # noqa: E402
+from repro_torch.data.synthetic import ge_like_fields, smooth_field  # noqa: E402
 from repro_torch.store import open_archive  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -110,8 +111,35 @@ def test_golden_full_retrieval_exhausts_archive():
             assert bound < 1e-10
 
 
-@pytest.mark.parametrize("source,item", [(V4_DIR, "A9"), (IP_DIR, "A8")],
-                         ids=["v4-journaled", "ip"])
+@pytest.mark.parametrize("source,item", [(V4_DIR, "A9")],
+                         ids=["v4-journaled"])
 def test_unported_golden_archives_name_their_roadmap_item(source, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         open_archive(source, device=CPU)
+
+
+def test_golden_ip_decodes_bit_identically():
+    """The committed method="ip" archive: reconstructions, certified
+    bounds and byte accounting equal the recorded expectations bit for bit,
+    and a fresh refactor of the same fields by the port reconstructs the
+    same (the closed-loop prediction contract: ``pred_planes`` plus the
+    fixed-order contribution sum)."""
+    want = _load("golden_ip_expected.npz")
+    fields = {"S": smooth_field((257,), seed=5, lo=-3.0, hi=9.0),
+              "Vx": ge_like_fields(n=1 << 10, seed=0)["Vx"]}
+    fresh = refactor_variables(fields, method="ip", device=CPU).open()
+    with open_archive(IP_DIR, device=CPU) as sa:
+        assert all(v.method == "ip" for v in sa.variables.values())
+        st = sa.open()
+        for i, eps in enumerate(want["ip__eps_ladder"]):
+            for v in ("S", "Vx"):
+                data, bound = st.reconstruct(v, float(eps))
+                rec = want[f"ip__{v}__eps{i}"]
+                assert np.array_equal(data.numpy().view(np.uint64),
+                                      rec.view(np.uint64)), (v, eps)
+                assert bound == float(want[f"ip__{v}__bound{i}"])
+                ref, ref_bound = fresh.reconstruct(v, float(eps))
+                assert torch.equal(ref.view(torch.int64),
+                                   data.view(torch.int64)), (v, eps)
+                assert ref_bound == bound
+        assert st.bytes_retrieved == int(want["ip__bytes_retrieved"])

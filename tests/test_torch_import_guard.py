@@ -74,7 +74,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_refactor_names_the_roadmap_item_of_unported_methods():
-    for method in ("ob", "ip", "psz3", "psz3_delta"):
+    for method in ("psz3", "psz3_delta"):
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             refactor_variables({"P": np.ones(9)}, method=method,
                                device="cpu")

@@ -413,8 +413,7 @@ def test_unported_archives_name_their_roadmap_item():
             "ranges": {}, "shapes": {}, "masks": {}, "segments": {}}
     cases = [({"journal": True, "variables": {}}, "A9"),
              ({"variables": {"T": {"kind": "timeseries"}}}, "A9"),
-             ({"variables": {"S": {"kind": "bitplane", "method": "ip"}}},
-              "A8"),
+             ({"variables": {"S": {"kind": "snapshot"}}}, "A8"),
              ({"variables": {"S": {"kind": "snapshot", "delta": True}}},
               "A8")]
     for extra, item in cases:
