@@ -51,10 +51,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fma_rn": (_P, _D, _LL, _P, _D, _LL, _P, _D, _LL, _LL, _P, _P),
     },
     "thomas": {
-        # n, cp_out, denom_out, stream
-        "thomas_factors": (_LL, _P, _P, _P),
-        # b, cp, denom, pre, n, post, out, stream
-        "thomas_solve": (_P, _P, _P, _LL, _LL, _LL, _P, _P),
+        # b, factor table, h, pre, n, post, out, stream
+        "thomas_solve": (_P, _P, _I, _LL, _LL, _LL, _P, _P),
     },
 }
 

@@ -53,7 +53,8 @@ FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
                                        REPO / "chip_smoke.py",
-                                       REPO / "tools" / "time_bitplane.py"]))
+                                       REPO / "tools" / "time_bitplane.py",
+                                       REPO / "tools" / "time_thomas.py"]))
 def test_no_jax_or_repro_import_statement(path):
     src = (REPO / path).read_text()
     assert not FORBIDDEN.findall(src), path
