@@ -3,7 +3,8 @@ progressive retrieval of scientific data under derivable QoIs).
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 module for module and never imports it (or ``jax``).  The slice ported so far
-is the paper's main pipeline:
+is the paper's main pipeline, for the five representations (hb, ob, ip and
+the snapshot ladders psz3, psz3_delta), with the archive store:
 
     archive = refactor_variables(fields, method="hb")        # Algorithm 1
     session = archive.open()

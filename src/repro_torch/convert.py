@@ -8,15 +8,23 @@ the port this way, so both packages retrieve from the very same bytes.
 
 Layout::
 
-    {"method": "hb" | "ob" | "ip",
+    {"method": "hb" | "ob" | "ip" | "psz3" | "psz3_delta",
      "shapes": {name: tuple}, "ranges": {name: float},
      "masks": {name: {"mask": bool array, "values": float64 array}},
-     "variables": {name: {"orig_shape": tuple, "padded_shape": tuple,
-                          "levels": int, "group_indices": [int64 array],
-                          "groups": [{"count": int, "exponent": int | None,
-                                      "nbits": int, "planes": [bytes],
-                                      "signs": bytes,
-                                      "pred_planes": int | None}]}}}
+     "variables": {name: <bitplane variable> | <snapshot variable>}}
+
+    bitplane variable (hb, ob, ip):
+        {"orig_shape": tuple, "padded_shape": tuple, "levels": int,
+         "group_indices": [int64 array],
+         "groups": [{"count": int, "exponent": int | None, "nbits": int,
+                     "planes": [bytes], "signs": bytes,
+                     "pred_planes": int | None}]}
+
+    snapshot variable (psz3, psz3_delta; ``eps_ladder`` only with delta):
+        {"delta": bool, "eps_ladder": [float],
+         "snapshots": [{"eps": float, "orig_shape": tuple,
+                        "padded_shape": tuple, "levels": int,
+                        "dtypes": [str], "amax": float, "blobs": [bytes]}]}
 
 ``pred_planes`` (the ip method's prediction depth) may be left out.
 """
@@ -27,9 +35,47 @@ from typing import Any, Dict
 import numpy as np
 
 from repro_torch.bitplane.encoder import LevelBitplanes
+from repro_torch.compressors.snapshots import DeltaSnapshotArchive, \
+    SnapshotArchive
+from repro_torch.compressors.szlike import SZCompressed
 from repro_torch.core.masks import OutlierMask
-from repro_torch.core.refactor import METHODS, Archive, BitplaneVarArchive
+from repro_torch.core.refactor import (
+    BITPLANE_METHODS,
+    METHODS,
+    Archive,
+    BitplaneVarArchive,
+    SnapshotVarArchive,
+)
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def _snapshot_var(v: Dict[str, Any]) -> SnapshotVarArchive:
+    snaps = [SZCompressed(eps=float(s["eps"]),
+                          orig_shape=tuple(s["orig_shape"]),
+                          padded_shape=tuple(s["padded_shape"]),
+                          levels=int(s["levels"]),
+                          blobs=[bytes(b) for b in s["blobs"]],
+                          dtypes=[str(d) for d in s["dtypes"]],
+                          amax=float(s["amax"]))
+             for s in v["snapshots"]]
+    if not v["delta"]:
+        return SnapshotVarArchive(SnapshotArchive(snapshots=snaps))
+    return SnapshotVarArchive(DeltaSnapshotArchive(
+        snapshots=snaps, eps_ladder=[float(e) for e in v["eps_ladder"]]))
+
+
+def _snapshot_arrays(var: SnapshotVarArchive) -> Dict[str, Any]:
+    arch = var.archive
+    delta = isinstance(arch, DeltaSnapshotArchive)
+    out = {"delta": delta,
+           "snapshots": [{"eps": s.eps, "orig_shape": tuple(s.orig_shape),
+                          "padded_shape": tuple(s.padded_shape),
+                          "levels": int(s.levels), "dtypes": list(s.dtypes),
+                          "amax": s.amax, "blobs": list(s.blobs)}
+                         for s in arch.snapshots]}
+    if delta:
+        out["eps_ladder"] = list(arch.eps_ladder)
+    return out
 
 
 def archive_from_arrays(d: Dict[str, Any], device: DeviceLike = None
@@ -42,6 +88,9 @@ def archive_from_arrays(d: Dict[str, Any], device: DeviceLike = None
     dev = resolve_device(device)
     variables = {}
     for name, v in d["variables"].items():
+        if d["method"] not in BITPLANE_METHODS:
+            variables[name] = _snapshot_var(v)
+            continue
         groups = [LevelBitplanes(count=int(g["count"]),
                                  exponent=None if g["exponent"] is None
                                  else int(g["exponent"]),
@@ -70,14 +119,11 @@ def archive_from_arrays(d: Dict[str, Any], device: DeviceLike = None
 def archive_to_arrays(archive) -> Dict[str, Any]:
     """Inverse of :func:`archive_from_arrays` (the device is not part of
     the layout)."""
-    return {
-        "method": archive.method,
-        "shapes": {k: tuple(s) for k, s in archive.shapes.items()},
-        "ranges": {k: float(r) for k, r in archive.ranges.items()},
-        "masks": {k: {"mask": np.asarray(m.mask),
-                      "values": np.asarray(m.values)}
-                  for k, m in archive.masks.items()},
-        "variables": {
+    if archive.method not in BITPLANE_METHODS:
+        variables = {name: _snapshot_arrays(v)
+                     for name, v in archive.variables.items()}
+    else:
+        variables = {
             name: {"orig_shape": tuple(v.orig_shape),
                    "padded_shape": tuple(v.padded_shape),
                    "levels": int(v.levels),
@@ -88,5 +134,13 @@ def archive_to_arrays(archive) -> Dict[str, Any]:
                                "signs": g.signs,
                                "pred_planes": g.pred_planes}
                               for g in v.groups]}
-            for name, v in archive.variables.items()},
+            for name, v in archive.variables.items()}
+    return {
+        "method": archive.method,
+        "shapes": {k: tuple(s) for k, s in archive.shapes.items()},
+        "ranges": {k: float(r) for k, r in archive.ranges.items()},
+        "masks": {k: {"mask": np.asarray(m.mask),
+                      "values": np.asarray(m.values)}
+                  for k, m in archive.masks.items()},
+        "variables": variables,
     }

@@ -1,8 +1,7 @@
-"""Algorithm 1 (refactor) and the progressive reader for the bitplane
-methods, on tensors.
+"""Algorithm 1 (refactor) and the progressive readers, on tensors.
 
-Counterpart of ``repro/core/refactor.py`` for its three bitplane
-representations:
+Counterpart of ``repro/core/refactor.py`` for its five representations,
+three bitplane ones:
 
   * "hb"  PMGARD-HB: hierarchical-basis multilevel + bitplanes (the paper's
           preferred method — tight Σ_l e_l bound);
@@ -13,8 +12,11 @@ representations:
           group reaches its recorded prediction depth
           (``transform/hierarchical.py``, ip section).
 
-The SZ-like snapshot ladders (psz3, psz3_delta) are not ported yet
-(ROADMAP A8).
+and the SZ-like snapshot ladders of the paper's comparison (§V-B):
+
+  * "psz3"        independent snapshots at a ladder of bounds;
+  * "psz3_delta"  a residual ladder, each rung coding what the looser
+                  rungs left (``compressors/snapshots.py``).
 
 Where things live: the archive's plane bytes are host data (the entropy
 stage is numpy/zlib, as in the reference); the transform, the codec kernels,
@@ -59,6 +61,11 @@ from repro_torch.bitplane.encoder import (
     planes_needed,
 )
 from repro_torch.bitplane.segments import InMemoryPlaneSource, LevelStream
+from repro_torch.compressors.snapshots import (
+    DeltaSnapshotArchive,
+    SnapshotArchive,
+    default_snapshot_eps,
+)
 from repro_torch.core.masks import OutlierMask, build_zero_velocity_mask
 from repro_torch.device import F64, DeviceLike, resolve_device
 from repro_torch.options import SessionOptions
@@ -80,10 +87,8 @@ from repro_torch.transform.orthogonal import (
     recompose_ob,
 )
 
-METHODS = ("hb", "ob", "ip")
-# methods of the reference not ported yet, and the ROADMAP item that ports
-# them
-_NOT_PORTED = {"psz3": "A8", "psz3_delta": "A8"}
+METHODS = ("hb", "ob", "ip", "psz3", "psz3_delta")
+BITPLANE_METHODS = ("hb", "ob", "ip")
 
 
 def _pred_planes(meta) -> int:
@@ -173,11 +178,27 @@ class BitplaneVarArchive:
 
 
 @dataclass
+class SnapshotVarArchive:
+    """psz3 / psz3_delta variable: a snapshot ladder of host bytes."""
+    archive: object                # SnapshotArchive | DeltaSnapshotArchive
+
+    @property
+    def total_nbytes(self) -> int:
+        return self.archive.total_nbytes
+
+    def open_reader(self, options: SessionOptions,
+                    device: torch.device) -> "_SnapshotVarReader":
+        # snapshot readers hold at most one decoded field; the contribution
+        # budget is a bitplane-reader concept
+        return _SnapshotVarReader(self, device)
+
+
+@dataclass
 class Archive:
     """Refactored multi-precision segments + metadata for all variables;
     sessions opened on it decode on ``device``."""
     method: str
-    variables: Dict[str, BitplaneVarArchive]
+    variables: Dict[str, object]
     masks: Dict[str, OutlierMask]
     ranges: Dict[str, float]
     shapes: Dict[str, Tuple[int, ...]]
@@ -201,21 +222,21 @@ def refactor_variables(fields: Dict[str, np.ndarray],
                        method: str = "hb",
                        nbits: int = 48,
                        max_levels: int = 32,
+                       snapshot_eps: Optional[Sequence[float]] = None,
+                       n_snapshots: int = 10,
                        mask_zero_velocity: bool = True,
                        device: DeviceLike = None) -> Archive:
     """Algorithm 1: refactor numpy fields into a progressive archive.  The
-    transform and the codec kernels run on ``device`` (default CUDA; raises
-    without it unless ``device="cpu"``)."""
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to repro_torch yet "
-            f"(ROADMAP {_NOT_PORTED[method]})")
+    transform, the codec kernels and the snapshot compressors' prediction
+    loop run on ``device`` (default CUDA; raises without it unless
+    ``device="cpu"``).  The snapshot methods take the ladder
+    ``snapshot_eps``, by default ``n_snapshots`` rungs range · 10^-i."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
-                         f"{METHODS + tuple(_NOT_PORTED)}")
+                         f"{METHODS}")
     dev = resolve_device(device)
     masks = build_zero_velocity_mask(fields) if mask_zero_velocity else {}
-    variables: Dict[str, BitplaneVarArchive] = {}
+    variables: Dict[str, object] = {}
     ranges: Dict[str, float] = {}
     shapes: Dict[str, Tuple[int, ...]] = {}
     for name, data in fields.items():
@@ -223,8 +244,15 @@ def refactor_variables(fields: Dict[str, np.ndarray],
         shapes[name] = data.shape
         rng = float(np.max(data) - np.min(data))
         ranges[name] = rng if rng > 0 else 1.0
-        variables[name] = _build_bitplane_var(data, method, nbits,
-                                              max_levels, dev)
+        if method in BITPLANE_METHODS:
+            variables[name] = _build_bitplane_var(data, method, nbits,
+                                                  max_levels, dev)
+            continue
+        ladder = list(snapshot_eps) if snapshot_eps is not None else \
+            default_snapshot_eps(ranges[name], n=n_snapshots)
+        build = SnapshotArchive.build if method == "psz3" \
+            else DeltaSnapshotArchive.build
+        variables[name] = SnapshotVarArchive(build(data, ladder, device=dev))
     return Archive(method=method, variables=variables, masks=masks,
                    ranges=ranges, shapes=shapes, device=dev)
 
@@ -591,17 +619,35 @@ class _BitplaneVarReader:
         return tuple(s.fetched for s in self.streams)
 
 
+class _SnapshotVarReader:
+    """Progressive reader over one in-memory snapshot variable, decoding on
+    ``device``."""
+
+    def __init__(self, var: SnapshotVarArchive, device: torch.device):
+        self.reader = var.archive.open(device)
+
+    @property
+    def bytes_fetched(self) -> int:
+        return self.reader.bytes_fetched
+
+    def request(self, eps: float) -> Tuple[torch.Tensor, float]:
+        return self.reader.request(eps)
+
+
 class RetrievalSession:
     """Progressive, stateful reader over all variables of an archive — the
     in-memory `Archive` or a store-backed `repro_torch.store.StoreArchive`
-    — decoding on the archive's device."""
+    — decoding on the archive's device.  Every variable builds its own
+    reader; contribution counters, availability and prefetch hints reach
+    the readers that have them (bitplane readers, store-backed snapshot
+    readers) and skip the others."""
 
     def __init__(self, archive,
                  options: Optional[SessionOptions] = None):
         self.archive = archive
         self.options = options if options is not None else SessionOptions()
         self.device = archive.device
-        self.readers: Dict[str, _BitplaneVarReader] = {
+        self.readers: Dict[str, object] = {
             name: var.open_reader(self.options, archive.device)
             for name, var in archive.variables.items()}
         self._mask_charged: Dict[str, bool] = {n: False for n in self.readers}
@@ -614,24 +660,27 @@ class RetrievalSession:
 
     def contrib_stats(self) -> ContribStats:
         """Aggregate contribution-cache counters over this session's
-        readers.  Distinct sinks are summed once: store-backed readers all
-        share their fetcher's FetchStats (which also carries the other
-        sessions of the same archive)."""
+        bitplane readers.  Distinct sinks are summed once: store-backed
+        readers all share their fetcher's FetchStats (which also carries the
+        other sessions of the same archive)."""
         agg = ContribStats()
         seen = set()
         for r in self.readers.values():
-            if id(r.contrib_stats) not in seen:
-                seen.add(id(r.contrib_stats))
-                agg.merge(r.contrib_stats)
+            st = getattr(r, "contrib_stats", None)
+            if st is not None and id(st) not in seen:
+                seen.add(id(st))
+                agg.merge(st)
         return agg
 
     def availability(self) -> Dict[str, VarAvailability]:
         """Per-variable reports of pinned variables (empty when healthy)."""
         out = {}
         for name, r in self.readers.items():
-            a = r.availability()
-            if a.pinned:
-                out[name] = a
+            get = getattr(r, "availability", None)
+            if get is not None:
+                a = get()
+                if a.pinned:
+                    out[name] = a
         return out
 
     @property
@@ -640,10 +689,13 @@ class RetrievalSession:
 
     def prefetch(self, name: str, eps: float, certain: bool = True) -> None:
         """Non-binding hint that ``reconstruct(name, eps)`` is coming: a
-        store-backed reader starts moving the planes in the background; for
-        an in-memory archive, whose planes are all resident, it does
-        nothing."""
-        self.readers[name].prefetch_eps(eps, certain=certain)
+        store-backed reader starts moving the segments in the background;
+        for an in-memory archive, whose segments are all resident, it does
+        nothing.  ``certain=False`` marks a predicted eps, which psz3's
+        independent snapshots skip."""
+        prefetch = getattr(self.readers[name], "prefetch_eps", None)
+        if prefetch is not None:
+            prefetch(eps, certain=certain)
 
     def reconstruct(self, name: str, eps: float) -> Tuple[torch.Tensor,
                                                           float]:
@@ -663,7 +715,11 @@ class RetrievalSession:
         """Progression in resolution (paper §II): the 2^coarsen-strided
         sub-grid with an L-inf guarantee, moving only coarse-level segments
         (hb and ip archives)."""
-        return self.readers[name].reconstruct_at_resolution(coarsen, eps)
+        reader = self.readers[name]
+        if not isinstance(reader, _BitplaneVarReader):
+            raise ValueError("resolution progression requires a bitplane "
+                             "(hb/ip) archive")
+        return reader.reconstruct_at_resolution(coarsen, eps)
 
     def eb_array(self, name: str, achieved: float) -> torch.Tensor:
         """Per-point error-bound tensor: achieved everywhere, 0 at exact

@@ -1,5 +1,5 @@
-"""Segment store & transport for hb archives: container, byte stores,
-prefetching (counterpart of ``repro.store``).
+"""Segment store & transport for archives of every method: container, byte
+stores, prefetching (counterpart of ``repro.store``).
 
 ``save_archive`` / ``save_sharded_archive`` serialize a refactored
 `Archive` into a manifest + segment payload container — one blob, or one
@@ -24,6 +24,7 @@ from repro_torch.store.cache import CacheStats, SegmentCache
 from repro_torch.store.container import (
     StoreArchive,
     StoreBitplaneVar,
+    StoreSnapshotVar,
     build_container,
     build_sharded_container,
     manifest_archive_id,
@@ -55,7 +56,7 @@ __all__ = [
     "ByteStore", "MemoryByteStore", "FileByteStore", "HTTPByteStore",
     "HTTPStats", "RemoteByteStore",
     "SegmentCache", "CacheStats",
-    "StoreArchive", "StoreBitplaneVar",
+    "StoreArchive", "StoreBitplaneVar", "StoreSnapshotVar",
     "build_container", "build_sharded_container",
     "save_archive", "save_sharded_archive",
     "open_archive", "memory_store_archive",

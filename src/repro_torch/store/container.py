@@ -1,5 +1,5 @@
-"""Archive containers for bitplane archives (hb, ob, ip): manifest +
-segment payload(s), single-file or sharded.
+"""Archive containers (hb, ob, ip, psz3, psz3_delta): manifest + segment
+payload(s), single-file or sharded.
 
 Counterpart of ``repro/store/container.py``; the container format is the
 reference's, byte for byte, so either package opens what the other wrote.
@@ -12,11 +12,13 @@ Layout of a single-file ``.prs`` container::
 
 A *sharded* container is a directory (or URL prefix, or any set of
 ByteStores) holding ``manifest.json`` plus one payload blob per shard — per
-variable (``Vx.seg``) or per level group (``Vx.g0.seg``).
+variable (``Vx.seg``) or per level group or snapshot (``Vx.g0.seg``,
+``Vx.s0.seg``).
 
 The manifest carries the method, per-variable group metadata (counts,
 exponents, nbits, per-plane sizes, and an ip group's ``pred_planes``),
-outlier-mask shapes and value ranges,
+snapshot ladder metadata (per snapshot eps, shapes, levels, code dtypes,
+amax and blob sizes), outlier-mask shapes and value ranges,
 plus a segment index mapping ``key -> (blob, offset, size, crc32c, codec)``
 (format v3).  v2 manifests carry ``(blob, offset, size, crc32c)`` and v1
 manifests ``(offset, size, crc32c)`` with an implicit single blob; all
@@ -31,9 +33,8 @@ move bytes: inflation, the host -> device copy and every kernel launch stay
 on the caller's thread and stream.  Reconstructions are bit-identical to an
 in-memory session at every requested bound.
 
-Archives with psz3/psz3_delta (snapshot) variables raise
-``NotImplementedError`` naming ROADMAP A8, and live (journaled, format v4)
-archives naming A9.
+Live (journaled, format v4) archives and their timeseries variables raise
+``NotImplementedError`` naming ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -50,12 +51,19 @@ import torch
 from repro_torch.bitplane.codecs import blob_codec_id, codec_name
 from repro_torch.bitplane.encoder import PlaneGroupMeta
 from repro_torch.bitplane.segments import PlaneSource
+from repro_torch.compressors.snapshots import (
+    DeltaSnapshotArchive,
+    DeltaSnapshotReader,
+    SnapshotReader,
+)
+from repro_torch.compressors.szlike import SZCompressed, sz_decompress
 from repro_torch.core.masks import OutlierMask
 from repro_torch.core.refactor import (
-    METHODS,
     Archive,
     BitplaneVarArchive,
     RetrievalSession,
+    SnapshotVarArchive,
+    VarAvailability,
     _BitplaneVarReader,
 )
 from repro_torch.device import DeviceLike, resolve_device
@@ -97,8 +105,8 @@ def segment_depth(key: str) -> int:
 def _shard_of(key: str, shard_by: str) -> str:
     """Map a segment key to its payload blob name under a shard policy.
 
-    Keys look like ``Vx/g0/p3``, ``Vx/g0/signs``, ``Vx/mask/bitmap`` — the
-    first component is always the variable.
+    Keys look like ``Vx/g0/p3``, ``Vx/g0/signs``, ``Vx/s1/b0``,
+    ``Vx/mask/bitmap`` — the first component is always the variable.
     """
     if shard_by == "single":
         return ""
@@ -109,7 +117,7 @@ def _shard_of(key: str, shard_by: str) -> str:
     if shard_by == "group":
         if parts[1] == "mask":
             return f"{var}.meta.seg"
-        return f"{var}.{parts[1]}.seg"
+        return f"{var}.{parts[1]}.seg"      # g<l> (bitplane) / s<i> (snapshot)
     raise ValueError(f"unknown shard policy {shard_by!r}; "
                      f"choose from {SHARD_POLICIES}")
 
@@ -125,17 +133,10 @@ def _check_ported(manifest: dict) -> None:
         raise NotImplementedError("live (journaled) archives are not ported "
                                   "to repro_torch yet (ROADMAP A9)")
     for name, spec in manifest["variables"].items():
-        kind = spec.get("kind")
-        if kind == "timeseries":
+        if spec.get("kind") == "timeseries":
             raise NotImplementedError(
                 f"{name}: timeseries variables are not ported to repro_torch "
                 f"yet (ROADMAP A9)")
-        if kind != "bitplane" or spec.get("method") not in METHODS:
-            what = spec.get("method", "delta" if spec.get("delta")
-                            else kind)
-            raise NotImplementedError(
-                f"{name}: {what} variables are not ported to repro_torch "
-                f"yet (ROADMAP A8)")
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +193,25 @@ def _bitplane_var_manifest(name: str, var: BitplaneVarArchive,
             "levels": var.levels, "groups": groups}
 
 
+def _snapshot_var_manifest(name: str, var: SnapshotVarArchive,
+                           w: _SegmentWriter) -> dict:
+    arch = var.archive
+    delta = isinstance(arch, DeltaSnapshotArchive)
+    snaps = []
+    for i, s in enumerate(arch.snapshots):
+        for j, blob in enumerate(s.blobs):
+            w.add(f"{name}/s{i}/b{j}", blob)
+        snaps.append({"eps": s.eps, "orig_shape": list(s.orig_shape),
+                      "padded_shape": list(s.padded_shape),
+                      "levels": s.levels, "dtypes": list(s.dtypes),
+                      "amax": s.amax,
+                      "blob_sizes": [len(b) for b in s.blobs]})
+    out = {"kind": "snapshot", "delta": delta, "snapshots": snaps}
+    if delta:
+        out["eps_ladder"] = list(arch.eps_ladder)
+    return out
+
+
 def build_sharded_container(archive: Archive,
                             shard_by: str = "variable"
                             ) -> Tuple[dict, Dict[str, bytes]]:
@@ -203,9 +223,12 @@ def build_sharded_container(archive: Archive,
     for name, var in archive.variables.items():
         if "/" in name:
             raise ValueError(f"variable name {name!r} may not contain '/'")
-        if not isinstance(var, BitplaneVarArchive):
+        if isinstance(var, BitplaneVarArchive):
+            variables[name] = _bitplane_var_manifest(name, var, w)
+        elif isinstance(var, SnapshotVarArchive):
+            variables[name] = _snapshot_var_manifest(name, var, w)
+        else:
             raise TypeError(f"cannot serialize variable of type {type(var)}")
-        variables[name] = _bitplane_var_manifest(name, var, w)
     masks: Dict[str, dict] = {}
     for name, m in archive.masks.items():
         w.add(f"{name}/mask/bitmap", np.packbits(m.mask.ravel()).tobytes())
@@ -347,6 +370,158 @@ class StoreBitplaneVar:
             contrib_stats=self._fetcher.stats)
 
 
+class _SnapshotHandle:
+    """Manifest-only view of one SZ snapshot: selection metadata resident,
+    blobs fetched (verified) on load."""
+
+    def __init__(self, name: str, idx: int, spec: dict,
+                 fetcher: SegmentFetcher):
+        self.eps: float = spec["eps"]
+        self.amax: float = spec["amax"]
+        self._spec = spec
+        self._keys = [f"{name}/s{idx}/b{j}"
+                      for j in range(len(spec["blob_sizes"]))]
+        self._fetcher = fetcher
+        self._loaded: Optional[SZCompressed] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(self._spec["blob_sizes"]) + 64  # + header, as SZCompressed
+
+    @property
+    def safe_eps(self) -> float:
+        return self.eps + 8 * np.finfo(np.float64).eps * self.amax
+
+    def prefetch(self, certain: bool = True) -> None:
+        self._fetcher.prefetch(self._keys, certain=certain)
+
+    def load(self) -> SZCompressed:
+        if self._loaded is None:
+            blobs = self._fetcher.fetch_many(self._keys)
+            s = self._spec
+            self._loaded = SZCompressed(
+                eps=s["eps"], orig_shape=tuple(s["orig_shape"]),
+                padded_shape=tuple(s["padded_shape"]), levels=s["levels"],
+                blobs=blobs, dtypes=list(s["dtypes"]), amax=s["amax"])
+        return self._loaded
+
+
+class _StoreSnapshotReader(SnapshotReader):
+    def __init__(self, archive, device: torch.device):
+        super().__init__(archive, device)
+        self._pin_error: Optional[BaseException] = None
+
+    def _decode(self, idx: int) -> torch.Tensor:
+        return sz_decompress(self.archive.snapshots[idx].load(), self.device)
+
+    @property
+    def is_degraded(self) -> bool:
+        return self._pin_error is not None
+
+    def availability(self) -> VarAvailability:
+        if self._pin_error is None:
+            return VarAvailability(
+                pinned=False, floor=self.archive.snapshots[-1].safe_eps)
+        floor = self.archive.snapshots[self._cache[0]].safe_eps \
+            if self._cache is not None else float("inf")
+        return VarAvailability(pinned=True, floor=floor,
+                               detail=str(self._pin_error))
+
+    def request(self, eps: float) -> Tuple[torch.Tensor, float]:
+        if self._pin_error is not None and self._cache is not None:
+            # availability-pinned: serve the deepest decoded snapshot — its
+            # bound is still a valid certificate, just wider
+            idx = self._cache[0]
+            return self._cache[1], self.archive.snapshots[idx].safe_eps
+        try:
+            return super().request(eps)
+        except Exception as e:
+            if self._cache is None:
+                raise          # nothing decoded yet: nothing to certify
+            self._pin_error = e
+            idx = self._cache[0]
+            return self._cache[1], self.archive.snapshots[idx].safe_eps
+
+    def prefetch_eps(self, eps: float, certain: bool = True) -> None:
+        # Independent snapshots are NOT prefix-monotone: a *predicted* eps
+        # that undershoots the landing state would move a whole snapshot
+        # that is never decoded.  Only act on certain hints.
+        if not certain:
+            return
+        idx = self._select(eps)
+        # mirror request()'s never-go-backwards rule: a request at or below
+        # an already-decoded snapshot reuses it and decodes nothing new
+        if self._cache is not None and self._cache[0] >= idx:
+            return
+        if not self.fetched[idx]:
+            self.archive.snapshots[idx].prefetch()
+
+
+class _StoreDeltaSnapshotReader(DeltaSnapshotReader):
+    def __init__(self, archive, device: torch.device):
+        super().__init__(archive, device)
+        self._pin_error: Optional[BaseException] = None
+
+    def _decode(self, idx: int) -> torch.Tensor:
+        return sz_decompress(self.archive.snapshots[idx].load(), self.device)
+
+    @property
+    def is_degraded(self) -> bool:
+        return self._pin_error is not None
+
+    def availability(self) -> VarAvailability:
+        if self._pin_error is None:
+            snaps = self.archive.snapshots
+            tight = snaps[-1]
+            slack = 8 * np.finfo(np.float64).eps * tight.amax * len(snaps)
+            return VarAvailability(pinned=False, floor=tight.eps + slack)
+        floor = self.achieved_bound() if self.n_fetched else float("inf")
+        return VarAvailability(pinned=True, floor=floor,
+                               detail=str(self._pin_error))
+
+    def request(self, eps: float) -> Tuple[torch.Tensor, float]:
+        if self._pin_error is not None and self.n_fetched:
+            # pinned: the residual ladder ends at the deepest applied rung
+            return self._decoded, self.achieved_bound()
+        try:
+            return super().request(eps)
+        except Exception as e:
+            if self.n_fetched == 0:
+                raise          # no rung applied: nothing to certify
+            self._pin_error = e
+            return self._decoded, self.achieved_bound()
+
+    def prefetch_eps(self, eps: float, certain: bool = True) -> None:
+        # The residual ladder is cumulative (request(eps) consumes ALL
+        # snapshots up to the selected index), so even a speculative
+        # prediction prefetches a prefix of what any tighter landing state
+        # will consume — byte-safe either way.
+        idx = self._select(eps)
+        for i in range(self.n_fetched, idx + 1):
+            self.archive.snapshots[i].prefetch(certain=certain)
+
+
+class StoreSnapshotVar:
+    """Store-backed psz3 / psz3_delta variable: snapshot handles whose
+    blobs stay on the ByteStore until a reader decodes them."""
+
+    def __init__(self, name: str, spec: dict, fetcher: SegmentFetcher):
+        self.name = name
+        self.delta: bool = spec["delta"]
+        self.snapshots = [_SnapshotHandle(name, i, s, fetcher)
+                          for i, s in enumerate(spec["snapshots"])]
+        self.eps_ladder = list(spec.get("eps_ladder", []))
+
+    @property
+    def total_nbytes(self) -> int:
+        return sum(h.nbytes for h in self.snapshots)
+
+    def open_reader(self, options: SessionOptions, device: torch.device):
+        # contribution budgets are bitplane-reader state
+        cls = _StoreDeltaSnapshotReader if self.delta else _StoreSnapshotReader
+        return cls(self, device)
+
+
 # ---------------------------------------------------------------------------
 # StoreArchive
 # ---------------------------------------------------------------------------
@@ -446,7 +621,7 @@ def manifest_archive_id(manifest: dict) -> str:
 
 
 class StoreArchive:
-    """An hb archive whose segments live on one or more ByteStores;
+    """An archive whose segments live on one or more ByteStores;
     ``open()`` returns a regular RetrievalSession streaming through the
     SegmentFetcher and decoding on ``device``.
 
@@ -496,9 +671,14 @@ class StoreArchive:
                                       retry_policy=retry_policy,
                                       quarantine=quarantine)
         self.masks = _LazyMasks(manifest["masks"], self.fetcher)
-        self.variables: Dict[str, StoreBitplaneVar] = {
-            name: StoreBitplaneVar(name, spec, self.fetcher)
-            for name, spec in manifest["variables"].items()}
+        self.variables: Dict[str, object] = {}
+        for name, spec in manifest["variables"].items():
+            if spec["kind"] == "bitplane":
+                self.variables[name] = StoreBitplaneVar(name, spec,
+                                                        self.fetcher)
+            else:
+                self.variables[name] = StoreSnapshotVar(name, spec,
+                                                        self.fetcher)
 
     @property
     def archive_id(self) -> str:

@@ -13,8 +13,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import device as port_device  # noqa: E402
+from repro_torch.compressors.snapshots import (  # noqa: E402
+    DeltaSnapshotArchive,
+    SnapshotArchive,
+)
+from repro_torch.compressors.szlike import sz_compress, sz_decompress  # noqa: E402
 from repro_torch.convert import archive_from_arrays  # noqa: E402
-from repro_torch.core.refactor import refactor_variables  # noqa: E402
+from repro_torch.core.refactor import METHODS, refactor_variables  # noqa: E402
 from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: E402
 from repro_torch.kernels.bitplane_unpack import bitplane_unpack  # noqa: E402
 
@@ -32,6 +37,8 @@ def _modules():
 def test_every_module_imports_without_jax_repro_or_triton():
     mods = _modules()
     assert "repro_torch.core.retrieval" in mods
+    assert "repro_torch.compressors.szlike" in mods
+    assert "repro_torch.compressors.snapshots" in mods
     code = ("import sys, importlib\n"
             "for m in ('jax', 'repro', 'triton'):\n"
             "    sys.modules[m] = None\n"
@@ -54,6 +61,7 @@ FORBIDDEN = re.compile(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
                                        REPO / "chip_smoke.py",
                                        REPO / "tools" / "time_bitplane.py",
+                                       REPO / "tools" / "time_fma.py",
                                        REPO / "tools" / "time_thomas.py"]))
 def test_no_jax_or_repro_import_statement(path):
     src = (REPO / path).read_text()
@@ -70,17 +78,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         archive_from_arrays({"method": "hb", "variables": {}, "masks": {},
                              "ranges": {}, "shapes": {}})
+    # the snapshot compressors: the predict/quantise loop wants CUDA too
+    x = fields["P"]
+    for method in ("psz3", "psz3_delta"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            refactor_variables(fields, method=method)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sz_compress(x, 1e-3)
+    snap = sz_compress(x, 1e-3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sz_decompress(snap)
+    for cls in (SnapshotArchive, DeltaSnapshotArchive):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.build(x, [1e-2])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.build(x, [1e-2], device="cpu").open()
     # an explicit CPU request is honoured
     assert refactor_variables(fields, device="cpu").device.type == "cpu"
+    assert sz_decompress(snap, device="cpu").device.type == "cpu"
 
 
-def test_refactor_names_the_roadmap_item_of_unported_methods():
-    for method in ("psz3", "psz3_delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            refactor_variables({"P": np.ones(9)}, method=method,
-                               device="cpu")
-    with pytest.raises(ValueError):
-        refactor_variables({"P": np.ones(9)}, method="nope", device="cpu")
+def test_refactor_runs_every_method_on_the_cpu_and_rejects_unknown_ones():
+    fields = {"P": np.linspace(1.0, 2.0, 9)}
+    assert METHODS == ("hb", "ob", "ip", "psz3", "psz3_delta")
+    for method in METHODS:
+        archive = refactor_variables(fields, method=method, device="cpu")
+        assert archive.method == method and archive.device.type == "cpu"
+        data, _ = archive.open().reconstruct("P", 1e-3)
+        assert data.device.type == "cpu" and data.shape == (9,)
+    with pytest.raises(ValueError, match="unknown method"):
+        refactor_variables(fields, method="nope", device="cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -412,10 +412,7 @@ def test_unported_archives_name_their_roadmap_item():
     base = {"format": "prstore", "version": 3, "method": "hb",
             "ranges": {}, "shapes": {}, "masks": {}, "segments": {}}
     cases = [({"journal": True, "variables": {}}, "A9"),
-             ({"variables": {"T": {"kind": "timeseries"}}}, "A9"),
-             ({"variables": {"S": {"kind": "snapshot"}}}, "A8"),
-             ({"variables": {"S": {"kind": "snapshot", "delta": True}}},
-              "A8")]
+             ({"variables": {"T": {"kind": "timeseries"}}}, "A9")]
     for extra, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             open_archive(dict(base, **extra),
