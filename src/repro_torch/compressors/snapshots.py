@@ -14,6 +14,13 @@ compresses the *residual* against the reconstruction from snapshots < i, so
 a request for ε* fetches all first i snapshots but shares bytes across
 requests.  decoded_i = Σ_{j<=i} decode_j, with |x - decoded_i|_inf <= ε_i.
 
+Timestep deltas (live archives, manifest v4): ``encode_timestep`` /
+``decode_timestep`` apply the same residual idea along the time axis.  A
+keyframe compresses the field on its own; a delta timestep compresses
+x_k − rec_{k−1} against the previous timestep's *reconstruction*, so the
+per-timestep bound is ε_k plus float accumulation slack, whatever the
+chain's length.
+
 Snapshot bytes are host data; builds and readers decode on a device, and a
 reader's results are tensors there.  A reader never changes a tensor it has
 returned: the delta reader's running sum is a new tensor per rung.
@@ -44,6 +51,45 @@ def select_snapshot(snapshots: Sequence, eps: float) -> int:
         if s.eps <= eps:
             return i
     return len(snapshots) - 1
+
+
+def encode_timestep(x, eps: float, prev_recon: Optional[torch.Tensor] = None,
+                    device: DeviceLike = None
+                    ) -> Tuple[SZCompressed, torch.Tensor]:
+    """Encode one appended timestep on ``device``; returns ``(snap,
+    recon)``.
+
+    With ``prev_recon=None`` this is a keyframe, the field compressed on its
+    own.  Otherwise the residual ``x - prev_recon`` is compressed, and
+    ``recon = prev_recon + decode(snap)``, so ``|x - recon|_inf <= eps``
+    holds without compounding along the chain.  ``recon`` is the writer's
+    state for the next delta, bit for bit what a reader decodes for this
+    timestep; it stays on ``device``.  The subtraction and the addition are
+    one rounding each, as in the reference."""
+    dev = resolve_device(device)
+    x = as_device_tensor(x, dev)
+    if prev_recon is None:
+        snap = sz_compress(x, eps, device=dev)
+        return snap, sz_decompress(snap, dev)
+    snap = sz_compress(x - prev_recon, eps, device=dev)
+    return snap, prev_recon + sz_decompress(snap, dev)
+
+
+def decode_timestep(snap: SZCompressed,
+                    prev_recon: Optional[torch.Tensor] = None,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Decode one timestep on ``device``: a keyframe stands alone, a delta
+    adds onto its chain predecessor's reconstruction."""
+    delta = sz_decompress(snap, resolve_device(device))
+    return delta if prev_recon is None else prev_recon + delta
+
+
+def timestep_bound(eps: float, amax_chain: Sequence[float]) -> float:
+    """Certified L-inf bound of a timestep decoded through a keyframe→delta
+    chain: its own eps plus one rounding allowance per chain link, as
+    ``DeltaSnapshotReader.achieved_bound``."""
+    amax = max(amax_chain) if len(amax_chain) else 0.0
+    return eps + 8 * np.finfo(np.float64).eps * amax * len(amax_chain)
 
 
 @dataclass

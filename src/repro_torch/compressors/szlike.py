@@ -83,9 +83,24 @@ def _pad_to_grid(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     return x, orig
 
 
+_INT64_MIN = -2 ** 63
+
+
 def _quantise(resid: torch.Tensor, eps: float) -> torch.Tensor:
-    # np.round and torch.round both round half to even
-    return torch.round(resid / (2.0 * eps)).to(torch.int64)
+    # The divisor is a tensor on resid's device: torch's CUDA kernel divides
+    # by a Python scalar as a multiply by its reciprocal, which is not
+    # correctly rounded and moves codes beyond 2^53.  np.round and
+    # torch.round both round half to even.  The reference's
+    # ``.astype(np.int64)`` is x86's cvttsd2si, which gives INT64_MIN for
+    # NaN, ±inf and anything outside [-2^63, 2^63); CUDA's cvt saturates
+    # instead, so out-of-range codes are set to INT64_MIN explicitly and
+    # both devices write the reference's bytes.
+    two_eps = torch.full((), 2.0 * eps, dtype=resid.dtype,
+                         device=resid.device)
+    r = torch.round(resid / two_eps)
+    ok = (r >= -2.0 ** 63) & (r < 2.0 ** 63)       # False for NaN
+    return torch.where(ok, r.to(torch.int64),
+                       torch.full_like(r, _INT64_MIN, dtype=torch.int64))
 
 
 def _pack_codes(codes: torch.Tensor) -> Tuple[bytes, str]:

@@ -687,13 +687,39 @@ class RetrievalSession:
     def degraded(self) -> bool:
         return bool(self.availability())
 
+    def reader(self, name: str):
+        """The per-variable reader, opened lazily for a variable that
+        appeared after this session did (live archives: a journal replay on
+        ``refresh()`` can add timeseries variables to an open archive)."""
+        r = self.readers.get(name)
+        if r is None:
+            var = self.archive.variables.get(name)
+            if var is None:
+                refresh = getattr(self.archive, "refresh", None)
+                if refresh is not None:
+                    refresh()          # maybe it was journaled since open
+                var = self.archive.variables.get(name)
+            if var is None:
+                raise KeyError(name)
+            r = var.open_reader(self.options, self.device)
+            self.readers[name] = r
+            self._mask_charged.setdefault(name, False)
+        return r
+
+    def follow(self, name: str) -> "FollowStream":
+        """Follow-mode view over a live timeseries variable: ``poll()``
+        surfaces newly appended timesteps (refreshing the archive's journal
+        first), ``read(t)`` decodes them — without reopening anything, and
+        bit-identical to a one-shot session over the same data."""
+        return FollowStream(self, name)
+
     def prefetch(self, name: str, eps: float, certain: bool = True) -> None:
         """Non-binding hint that ``reconstruct(name, eps)`` is coming: a
         store-backed reader starts moving the segments in the background;
         for an in-memory archive, whose segments are all resident, it does
         nothing.  ``certain=False`` marks a predicted eps, which psz3's
         independent snapshots skip."""
-        prefetch = getattr(self.readers[name], "prefetch_eps", None)
+        prefetch = getattr(self.readers.get(name), "prefetch_eps", None)
         if prefetch is not None:
             prefetch(eps, certain=certain)
 
@@ -701,7 +727,7 @@ class RetrievalSession:
                                                           float]:
         """Reconstruct a variable to L-inf bound <= eps; returns the data on
         the device (outlier-masked points exact) and the achieved bound."""
-        data, achieved = self.readers[name].request(eps)
+        data, achieved = self.reader(name).request(eps)
         mask = self.archive.masks.get(name)
         if mask is not None:
             if not self._mask_charged[name]:
@@ -738,3 +764,51 @@ class RetrievalSession:
         rbytes = sum(self.readers[n].bytes_fetched for n in names) \
             + self._mask_bytes
         return 8.0 * rbytes / max(n_elems, 1)
+
+
+class FollowStream:
+    """Live view over one timeseries variable of an open session.
+
+    ``poll()`` refreshes the archive's journal and returns the timestep
+    indices that became visible since the previous poll (never reporting
+    one twice); ``read(t)`` decodes a retained timestep through the
+    session's chain-caching reader, so walking the stream in order pays one
+    delta decode per step — which keeps a followed session bit- and
+    byte-identical to a one-shot session over the same timesteps."""
+
+    def __init__(self, session: RetrievalSession, name: str):
+        reader = session.reader(name)
+        var = getattr(reader, "var", None)
+        if var is None or not hasattr(var, "timesteps"):
+            raise ValueError(f"variable {name!r} is not a timeseries — "
+                             f"follow() needs a journaled (v4) live archive")
+        self.session = session
+        self.name = name
+        self._reader = reader
+        self._var = var
+        # report everything already visible on the first poll
+        self._next_t = var.base_t
+
+    @property
+    def latest(self) -> Optional[int]:
+        """Newest visible timestep index (None before the first append)."""
+        return self._var.latest_t
+
+    def poll(self) -> List[int]:
+        """Refresh the journal; return newly visible timestep indices."""
+        refresh = getattr(self.session.archive, "refresh", None)
+        if refresh is not None:
+            refresh()
+        latest = self._var.latest_t
+        if latest is None:
+            return []
+        start = max(self._next_t, self._var.base_t)
+        if start > latest:
+            return []
+        self._next_t = latest + 1
+        return list(range(start, latest + 1))
+
+    def read(self, t: int) -> Tuple[torch.Tensor, float]:
+        """Decode timestep ``t``; returns ``(data, certified bound)`` with
+        the data on the session's device."""
+        return self._reader.read(t)

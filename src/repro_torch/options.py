@@ -3,10 +3,10 @@
 Counterpart of ``repro/options.py``: :class:`OpenOptions` (how a store
 archive is opened: transport, verification, caching, fault tolerance) and
 :class:`SessionOptions` (how one retrieval session reads), reduced to the
-fields the hb reader and the store plane read.  The reference's session
-fields for the serve plane (prefetch depth, shared contribution pool,
-decode batcher), its ``follow`` flag for live archives, and its shim for
-pre-v4 loose keyword arguments have no counterpart here.
+fields the readers, the store plane and live archives read.  The
+reference's session fields for the serve plane (prefetch depth, shared
+contribution pool, decode batcher) and its shim for pre-v4 loose keyword
+arguments have no counterpart here.
 """
 from __future__ import annotations
 
@@ -27,7 +27,10 @@ class OpenOptions:
       * ``archive_id`` — cache budget-group override (default: manifest
         hash);
       * ``retry_policy`` / ``quarantine`` — fault-tolerance layer
-        (``repro_torch.store.retry``); None enables the hardened defaults.
+        (``repro_torch.store.retry``); None enables the hardened defaults;
+      * ``follow`` — replay the manifest v4 journal on open and allow
+        ``StoreArchive.refresh()`` to tail it afterwards (live archives);
+        False pins the session to the base manifest.
     """
     prefetch_workers: int = 2
     verify: bool = True
@@ -36,6 +39,7 @@ class OpenOptions:
     archive_id: Optional[str] = None
     retry_policy: Optional[Any] = None
     quarantine: Optional[Any] = None
+    follow: bool = True
 
     @classmethod
     def default(cls) -> "OpenOptions":

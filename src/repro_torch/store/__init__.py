@@ -8,7 +8,9 @@ blob per variable / level group — byte-identical to the JAX package's;
 mmap'd file, HTTP ranged GETs, simulated WAN link) with per-segment crc32c
 verification, a SegmentFetcher whose threads prefetch predicted planes in
 the background, and an optional cross-session SegmentCache.  Sessions on an
-opened archive decode on its device (default CUDA).
+opened archive decode on its device (default CUDA).  ``ArchiveWriter``
+appends timesteps to a live (journaled, v4) archive that open sessions
+follow through ``StoreArchive.refresh()``.
 ``repro_torch.store.httpd`` is the matching ranged-GET endpoint.
 """
 from repro_torch.options import OpenOptions, SessionOptions
@@ -22,9 +24,11 @@ from repro_torch.store.bytestore import (
 )
 from repro_torch.store.cache import CacheStats, SegmentCache
 from repro_torch.store.container import (
+    JOURNAL_NAME,
     StoreArchive,
     StoreBitplaneVar,
     StoreSnapshotVar,
+    StoreTimeseriesVar,
     build_container,
     build_sharded_container,
     manifest_archive_id,
@@ -51,15 +55,18 @@ from repro_torch.store.retry import (
     SegmentUnavailableError,
     is_transient,
 )
+from repro_torch.store.writer import ArchiveWriter, ensure_archive
 
 __all__ = [
     "ByteStore", "MemoryByteStore", "FileByteStore", "HTTPByteStore",
     "HTTPStats", "RemoteByteStore",
     "SegmentCache", "CacheStats",
     "StoreArchive", "StoreBitplaneVar", "StoreSnapshotVar",
+    "StoreTimeseriesVar",
     "build_container", "build_sharded_container",
     "save_archive", "save_sharded_archive",
     "open_archive", "memory_store_archive",
+    "ArchiveWriter", "ensure_archive", "JOURNAL_NAME",
     "OpenOptions", "SessionOptions",
     "segment_depth", "manifest_archive_id",
     "crc32c", "SegmentFetcher", "SegmentEntry", "FetchStats", "ChecksumError",

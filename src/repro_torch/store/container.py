@@ -33,14 +33,24 @@ move bytes: inflation, the host -> device copy and every kernel launch stay
 on the caller's thread and stream.  Reconstructions are bit-identical to an
 in-memory session at every requested bound.
 
-Live (journaled, format v4) archives and their timeseries variables raise
-``NotImplementedError`` naming ROADMAP A9.
+Live archives (format v4): a sharded directory may also carry an
+append-only ``journal.jsonl`` next to ``manifest.json``.  The manifest
+stays the v3-compatible base; every appended timestep adds one immutable
+``V.t<k>.seg`` blob and journal records describing its segments.
+``StoreArchive.refresh()`` re-reads the journal (over HTTP: a conditional
+GET that costs one 304 when nothing changed) and applies only its complete
+trailing records, so new timesteps become retrievable in an open session;
+``repro_torch.store.writer.ArchiveWriter`` is the producing side.
+Timeseries segments ``V/t<k>/b<j>`` decode through keyframe→delta chains
+on the archive's device, and a retention record drops a keyframe-aligned
+prefix of timesteps without touching what remains.
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
+import threading
 import urllib.parse
 import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -55,6 +65,8 @@ from repro_torch.compressors.snapshots import (
     DeltaSnapshotArchive,
     DeltaSnapshotReader,
     SnapshotReader,
+    decode_timestep,
+    timestep_bound,
 )
 from repro_torch.compressors.szlike import SZCompressed, sz_decompress
 from repro_torch.core.masks import OutlierMask
@@ -80,6 +92,7 @@ MAGIC = b"PRSTORE1"
 FORMAT_VERSION = 4          # newest container format of the reference
 STATIC_FORMAT_VERSION = 3   # what save_archive writes
 MANIFEST_NAME = "manifest.json"
+JOURNAL_NAME = "journal.jsonl"
 
 SHARD_POLICIES = ("single", "variable", "group")
 
@@ -122,21 +135,12 @@ def _shard_of(key: str, shard_by: str) -> str:
                      f"choose from {SHARD_POLICIES}")
 
 
-def _check_ported(manifest: dict) -> None:
-    """Raise for what the port cannot open yet, naming the ROADMAP item."""
+def _check_manifest(manifest: dict) -> None:
     if manifest.get("format") != "prstore":
         raise ValueError("not a prstore manifest")
     if manifest.get("version", 0) > FORMAT_VERSION:
         raise ValueError(f"container version {manifest.get('version')} "
                          f"newer than supported {FORMAT_VERSION}")
-    if manifest.get("journal"):
-        raise NotImplementedError("live (journaled) archives are not ported "
-                                  "to repro_torch yet (ROADMAP A9)")
-    for name, spec in manifest["variables"].items():
-        if spec.get("kind") == "timeseries":
-            raise NotImplementedError(
-                f"{name}: timeseries variables are not ported to repro_torch "
-                f"yet (ROADMAP A9)")
 
 
 # ---------------------------------------------------------------------------
@@ -523,6 +527,169 @@ class StoreSnapshotVar:
 
 
 # ---------------------------------------------------------------------------
+# Timeseries variables (format v4: journaled, append-only)
+# ---------------------------------------------------------------------------
+
+
+class _TimestepHandle:
+    """Manifest/journal-only view of one appended timestep: chain metadata
+    resident, payload blobs fetched (verified) on decode."""
+
+    def __init__(self, name: str, spec: dict, fetcher: SegmentFetcher):
+        self.t: int = spec["t"]
+        self.keyframe: bool = spec["keyframe"]
+        self.eps: float = spec["eps"]
+        self.amax: float = spec["amax"]
+        self._spec = spec
+        self._keys = [f"{name}/t{self.t}/b{j}"
+                      for j in range(len(spec["blob_sizes"]))]
+        self._fetcher = fetcher
+        self._loaded: Optional[SZCompressed] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(self._spec["blob_sizes"]) + 64  # + header, as SZCompressed
+
+    @property
+    def segment_keys(self) -> List[str]:
+        return list(self._keys)
+
+    def load(self) -> SZCompressed:
+        if self._loaded is None:
+            blobs = self._fetcher.fetch_many(self._keys)
+            s = self._spec
+            self._loaded = SZCompressed(
+                eps=s["eps"], orig_shape=tuple(s["orig_shape"]),
+                padded_shape=tuple(s["padded_shape"]), levels=s["levels"],
+                blobs=blobs, dtypes=list(s["dtypes"]), amax=s["amax"])
+        return self._loaded
+
+
+class StoreTimeseriesVar:
+    """Store-backed live timeseries variable (format v4).
+
+    Timesteps arrive through journal replay: each is a keyframe or a delta
+    against its predecessor's reconstruction.  ``base_t`` is the oldest
+    retained timestep, always a keyframe, advanced by retention records.
+    The list only grows at the tail and shrinks at the head, so a reader
+    holding an index into it stays valid across concurrent ``refresh()``
+    calls."""
+
+    kind = "timeseries"
+
+    def __init__(self, name: str, spec: dict, fetcher: SegmentFetcher):
+        self.name = name
+        self._fetcher = fetcher
+        self.base_t: int = spec.get("base_t", 0)
+        self.timesteps: List[_TimestepHandle] = [
+            _TimestepHandle(name, ts, fetcher)
+            for ts in spec.get("timesteps", [])]
+
+    @property
+    def total_nbytes(self) -> int:
+        return sum(h.nbytes for h in self.timesteps)
+
+    @property
+    def latest_t(self) -> Optional[int]:
+        return self.timesteps[-1].t if self.timesteps else None
+
+    def handle(self, t: int) -> _TimestepHandle:
+        i = t - self.base_t
+        if i < 0:
+            raise KeyError(f"{self.name}: timestep {t} dropped by retention "
+                           f"(oldest retained is {self.base_t})")
+        if i >= len(self.timesteps):
+            raise KeyError(f"{self.name}: timestep {t} not (yet) in the "
+                           f"journal — latest is {self.latest_t}")
+        return self.timesteps[i]
+
+    def add_timestep(self, spec: dict) -> None:
+        expect = self.base_t + len(self.timesteps)
+        if spec["t"] != expect:
+            raise ValueError(f"{self.name}: journal timestep {spec['t']} "
+                             f"out of order (expected {expect})")
+        if not spec["keyframe"] and not self.timesteps:
+            raise ValueError(f"{self.name}: delta timestep {spec['t']} "
+                             f"has no retained predecessor")
+        self.timesteps.append(_TimestepHandle(self.name, spec, self._fetcher))
+
+    def drop_before(self, t: int) -> List[str]:
+        """Apply a retention record: forget timesteps ``< t`` and return
+        their segment keys for the caller to drop from the fetch index.
+        ``t`` must land on a keyframe, or the remaining chain would
+        dangle."""
+        if t <= self.base_t:
+            return []
+        n = min(t - self.base_t, len(self.timesteps))
+        if n < len(self.timesteps) and not self.timesteps[n].keyframe:
+            raise ValueError(f"{self.name}: retention boundary t={t} is not "
+                             f"a keyframe — remaining chain would dangle")
+        dropped: List[str] = []
+        for h in self.timesteps[:n]:
+            dropped.extend(h.segment_keys)
+        del self.timesteps[:n]
+        self.base_t += n
+        return dropped
+
+    def open_reader(self, options: SessionOptions,
+                    device: torch.device) -> "_TimeseriesReader":
+        return _TimeseriesReader(self, device)
+
+
+class _TimeseriesReader:
+    """Chain-decoding reader over a (possibly growing) timeseries variable,
+    decoding on ``device``.
+
+    ``read(t)`` decodes timestep ``t`` through its keyframe→delta chain and
+    reuses the previous reconstruction when ``t`` continues the cached
+    chain, so a follow-mode session walking t, t+1, t+2 pays one delta
+    decode per step — which makes it bit- and byte-identical to a one-shot
+    session reading the same timesteps.  ``request(eps)`` serves the
+    session interface with the latest visible timestep."""
+
+    def __init__(self, var: StoreTimeseriesVar, device: torch.device):
+        self.var = var
+        self.device = device
+        self.bytes_fetched = 0
+        self._charged: set = set()                     # timestep indices
+        self._chain: Optional[Tuple[int, torch.Tensor]] = None  # (t, recon)
+
+    def _charge(self, h: _TimestepHandle) -> None:
+        if h.t not in self._charged:
+            self.bytes_fetched += h.nbytes
+            self._charged.add(h.t)
+
+    def read(self, t: int) -> Tuple[torch.Tensor, float]:
+        """Decode timestep ``t``; returns ``(data, certified L-inf bound)``."""
+        h = self.var.handle(t)
+        # the chain starts at the latest keyframe at or before t, or after
+        # the cached reconstruction if that is an ancestor on the chain
+        start = t
+        while not self.var.handle(start).keyframe:
+            start -= 1
+        prev: Optional[torch.Tensor] = None
+        begin = start
+        if self._chain is not None and start <= self._chain[0] <= t:
+            begin, prev = self._chain[0] + 1, self._chain[1]
+        for k in range(begin, t + 1):
+            hk = self.var.handle(k)
+            snap = hk.load()            # fetches (verified) on first touch
+            prev = decode_timestep(snap, None if hk.keyframe else prev,
+                                   self.device)
+            self._charge(hk)
+        self._chain = (t, prev)
+        amaxes = [self.var.handle(k).amax for k in range(start, t + 1)]
+        return prev, timestep_bound(h.eps, amaxes)
+
+    def request(self, eps: float) -> Tuple[torch.Tensor, float]:
+        latest = self.var.latest_t
+        if latest is None:
+            raise KeyError(f"{self.var.name}: no timesteps appended yet "
+                           f"(refresh() the archive or append first)")
+        return self.read(latest)
+
+
+# ---------------------------------------------------------------------------
 # StoreArchive
 # ---------------------------------------------------------------------------
 
@@ -630,6 +797,11 @@ class StoreArchive:
     a resolver callable ``blob name -> ByteStore`` invoked lazily on first
     touch — sessions that never read a shard never open (or require) it.
     ``cache`` is an optional cross-session `SegmentCache`.
+
+    ``journal_source`` (live v4 archives) is a zero-argument callable
+    returning the current full journal bytes, re-read on every
+    ``refresh()``: local opens re-read the file, HTTP opens go through
+    ``HTTPByteStore.read_all``'s conditional GET.
     """
 
     def __init__(self, manifest: dict, store: StoreSpec,
@@ -639,17 +811,21 @@ class StoreArchive:
                  cache: Optional[SegmentCache] = None,
                  archive_id: Optional[str] = None,
                  retry_policy: Optional[RetryPolicy] = None,
-                 quarantine: Optional[BlobQuarantine] = None):
+                 quarantine: Optional[BlobQuarantine] = None,
+                 journal_source: Optional[Callable[[], bytes]] = None):
         self.device = resolve_device(device)
-        _check_ported(manifest)
+        _check_manifest(manifest)
         self.manifest = manifest
         self.method: str = manifest["method"]
         self.ranges: Dict[str, float] = dict(manifest["ranges"])
         self.shapes: Dict[str, Tuple[int, ...]] = {
             k: tuple(v) for k, v in manifest["shapes"].items()}
         # the id only matters as a cache grouping key: derive it eagerly
-        # only when a cache will consume it
-        if archive_id is None and cache is not None:
+        # only when a cache will consume it.  A live archive pins it now:
+        # journal replay changes the manifest dict (blob sizes), and the
+        # grouping id must not drift as the archive grows
+        if archive_id is None and (cache is not None
+                                   or journal_source is not None):
             archive_id = manifest_archive_id(manifest)
         self._archive_id = archive_id
         index = _parse_segment_index(manifest, payload_offset,
@@ -676,9 +852,78 @@ class StoreArchive:
             if spec["kind"] == "bitplane":
                 self.variables[name] = StoreBitplaneVar(name, spec,
                                                         self.fetcher)
+            elif spec["kind"] == "timeseries":
+                self.variables[name] = StoreTimeseriesVar(name, spec,
+                                                          self.fetcher)
             else:
                 self.variables[name] = StoreSnapshotVar(name, spec,
                                                         self.fetcher)
+        # -- live-archive (v4 journal) state --------------------------------
+        self.sealed: bool = bool(manifest.get("sealed", False))
+        self._journal_source = journal_source
+        # a consolidated manifest records how many leading journal records
+        # it already folded in; replay starts past them
+        self._journal_skip: int = int(manifest.get("journal_records", 0))
+        self._refresh_mu = threading.Lock()
+        if journal_source is not None and not self.sealed:
+            self.refresh()
+
+    # -- live archives (journal replay) --------------------------------------
+
+    def refresh(self) -> int:
+        """Re-read the journal and apply the records appended since the
+        last refresh (or open); returns how many were applied.  Only
+        complete lines count — a tail record the writer is still writing
+        waits for the next refresh.  Static and sealed archives return 0
+        without touching the store."""
+        if self._journal_source is None or self.sealed:
+            return 0
+        with self._refresh_mu:
+            raw = self._journal_source()
+            lines = raw.split(b"\n")[:-1]   # drop the unterminated tail
+            records = lines[self._journal_skip:]
+            applied = 0
+            for line in records:
+                line = line.strip()
+                if line:
+                    self._apply_journal_record(json.loads(line))
+                applied += 1
+            self._journal_skip += applied
+            return applied
+
+    def _apply_journal_record(self, rec: dict) -> None:
+        op = rec.get("op")
+        if op == "segment":
+            key = rec["key"]
+            self.fetcher.add_segments({key: SegmentEntry(
+                offset=rec["offset"], size=rec["size"], crc=rec["crc"],
+                blob=rec["blob"], depth=segment_depth(key),
+                codec=rec.get("codec"))})
+            # keep the manifest's blob sizes current: the lazy HTTP blob
+            # resolver reads them to skip per-blob HEAD probes
+            blobs = self.manifest.setdefault("blobs", {})
+            blobs[rec["blob"]] = max(blobs.get(rec["blob"], 0),
+                                     rec["offset"] + rec["size"])
+        elif op == "var":
+            name = rec["name"]
+            if name not in self.variables:
+                self.variables[name] = StoreTimeseriesVar(
+                    name, {"kind": "timeseries"}, self.fetcher)
+                self.shapes[name] = tuple(rec["shape"])
+                self.ranges[name] = rec["range"]
+        elif op == "timestep":
+            var = self.variables[rec["var"]]
+            if not isinstance(var, StoreTimeseriesVar):
+                raise ValueError(f"journal timestep for non-timeseries "
+                                 f"variable {rec['var']!r}")
+            var.add_timestep(rec)
+        elif op == "retention":
+            var = self.variables[rec["var"]]
+            self.fetcher.remove_segments(var.drop_before(rec["base_t"]))
+        elif op == "seal":
+            self.sealed = True
+        else:
+            raise ValueError(f"unknown journal op {op!r}")
 
     @property
     def archive_id(self) -> str:
@@ -726,6 +971,11 @@ def is_url(source: str) -> bool:
     return source.startswith(("http://", "https://"))
 
 
+def _journal_manifest(manifest: dict) -> bool:
+    """Does this manifest advertise a live journal worth tailing?"""
+    return bool(manifest.get("journal")) and not manifest.get("sealed")
+
+
 def open_archive(source, options: Optional[OpenOptions] = None,
                  device: DeviceLike = None) -> StoreArchive:
     """Open a container — single-file, sharded, local, or over HTTP — whose
@@ -746,21 +996,29 @@ def open_archive(source, options: Optional[OpenOptions] = None,
         through the store, so its transfer is accounted like any other read.
 
     ``options`` is an :class:`repro_torch.options.OpenOptions` bundling the
-    transport/integrity knobs.
+    transport/integrity knobs and journal following.
+
+    A live (journaled, unsealed) sharded archive opens at its current
+    journal tail; ``StoreArchive.refresh()`` picks up later appends —
+    locally by re-reading ``journal.jsonl``, over HTTP by a conditional GET
+    that costs one 304 when nothing changed.
     """
     dev = resolve_device(device)
     opts = options if options is not None else OpenOptions()
     blob_resolver = opts.blob_resolver
 
     def build(manifest: dict, default: Optional[StoreSpec],
-              payload_offset: int = 0) -> StoreArchive:
+              payload_offset: int = 0,
+              journal_source: Optional[Callable[[], bytes]] = None
+              ) -> StoreArchive:
         return StoreArchive(manifest, blob_resolver or default, device=dev,
                             payload_offset=payload_offset,
                             prefetch_workers=opts.prefetch_workers,
                             verify=opts.verify, cache=opts.cache,
                             archive_id=opts.archive_id,
                             retry_policy=opts.retry_policy,
-                            quarantine=opts.quarantine)
+                            quarantine=opts.quarantine,
+                            journal_source=journal_source)
 
     def http_store(url: str, **kw) -> HTTPByteStore:
         if opts.retry_policy is not None:
@@ -778,12 +1036,20 @@ def open_archive(source, options: Optional[OpenOptions] = None,
         if urllib.parse.urlsplit(source).path.endswith(".json"):
             with http_store(source) as ms:
                 manifest = json.loads(ms.read_all().decode("utf-8"))
-            # blob sizes are recorded in the manifest, so shard stores skip
-            # their HEAD probe (one GET per first-touched shard)
+            journal_source = None
+            if opts.follow and _journal_manifest(manifest):
+                # a persistent store: read_all's ETag makes every poll of an
+                # unchanged journal a 304 header exchange
+                js = http_store(urllib.parse.urljoin(source, JOURNAL_NAME))
+                journal_source = js.read_all
+            # blob sizes are recorded in the manifest (and kept current by
+            # journal replay), so shard stores skip their HEAD probe (one
+            # GET per first-touched shard)
             blob_sizes = manifest.get("blobs", {})
             return build(manifest, lambda blob: http_store(
                 urllib.parse.urljoin(source, blob),
-                size=blob_sizes.get(blob)))
+                size=blob_sizes.get(blob)),
+                journal_source=journal_source)
         source = http_store(source)
 
     if isinstance(source, str):
@@ -793,8 +1059,18 @@ def open_archive(source, options: Optional[OpenOptions] = None,
             with open(mpath, "rb") as fh:
                 manifest = json.loads(fh.read().decode("utf-8"))
             root = os.path.dirname(os.path.abspath(mpath))
+            journal_source = None
+            if opts.follow and _journal_manifest(manifest):
+                jpath = os.path.join(root, JOURNAL_NAME)
+
+                def journal_source() -> bytes:
+                    try:
+                        with open(jpath, "rb") as jf:
+                            return jf.read()
+                    except FileNotFoundError:
+                        return b""
             return build(manifest, lambda blob: FileByteStore(
-                os.path.join(root, blob)))
+                os.path.join(root, blob)), journal_source=journal_source)
         source = FileByteStore(source)
 
     # single-blob container: parse the header through the store itself

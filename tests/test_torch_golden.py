@@ -2,9 +2,8 @@
 by the JAX package) and decodes them bit for bit as recorded: v1
 (single-file, 3-tuple segments, untagged streams), v2 (sharded, 4-tuple) and
 v3 (sharded, codec-tagged 5-tuple), with their byte accounting and codec
-attribution, and the ``ip`` archive (v3 with ``pred_planes``).  The live v4
-archive raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+attribution, and the ``ip`` archive (v3 with ``pred_planes``), and the live v4 archive
+(journaled, unsealed) replayed timestep by timestep.
 
 Reads the fixtures and the recorded expectations only; imports nothing of
 the JAX package.
@@ -113,9 +112,24 @@ def test_golden_full_retrieval_exhausts_archive():
 
 @pytest.mark.parametrize("source,item", [(V4_DIR, "A9")],
                          ids=["v4-journaled"])
-def test_unported_golden_archives_name_their_roadmap_item(source, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        open_archive(source, device=CPU)
+def test_unported_golden_archives_name_their_roadmap_item(source, item,
+                                                          expected_v34):
+    """The golden archives the port once refused now open: ``item`` names
+    the ROADMAP item that ported each.  The live v4 archive (unsealed)
+    replays its journal to the recorded per-timestep values, bounds and
+    byte accounting."""
+    with open_archive(source, device=CPU) as sa:
+        assert sa.manifest["journal"] and not sa.sealed
+        st = sa.open()
+        reader = st.reader("T")
+        for t in range(6):
+            data, bound = reader.read(t)
+            np.testing.assert_array_equal(
+                _bits(data), _bits(expected_v34[f"v4__t{t}"]),
+                err_msg=f"{item}: v4 timestep {t}")
+            assert bound == float(expected_v34[f"v4__bound{t}"])
+        assert st.bytes_retrieved == int(expected_v34["v4__bytes_retrieved"])
+        assert sa.refresh() == 0
 
 
 def test_golden_ip_decodes_bit_identically():

@@ -179,6 +179,54 @@ def test_sz_compress_takes_a_tensor_and_rejects_bad_eps():
         tsz.sz_compress(x, 0.0, device=CPU)
 
 
+# Fault C5: a field whose first, unpredicted value is large against the
+# tightest rung (range 0, so the default ladder ends at 1e-10 absolute)
+# quantises to codes beyond 2^63.  The reference's ``.astype(np.int64)``
+# gives x86's INT64_MIN there, and the port does the same by design, bound
+# violation included.
+C5_FIELDS = {"const-5e9": np.full((4, 4), 5e9),
+             "single-1.3e12": np.array([1.3e12])}
+CAST_EDGES = np.array([0.0, -0.0, 1.0, -1.0, 2.0 ** 62, -(2.0 ** 63),
+                       np.nextafter(2.0 ** 63, 0.0), 2.0 ** 63, -(2.0 ** 64),
+                       1e300, -1e300, np.inf, -np.inf, np.nan])
+
+
+def test_quantise_casts_out_of_range_like_x86():
+    """NaN, ±inf and everything outside [-2^63, 2^63) become INT64_MIN, as
+    the reference's cast gives on x86; in-range codes cast exactly."""
+    with np.errstate(invalid="ignore"):
+        want = jsz._quantise(CAST_EDGES, 0.5)
+    got = tsz._quantise(torch.from_numpy(CAST_EDGES), 0.5)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[7:] == np.iinfo(np.int64).min).all()
+
+
+@pytest.mark.parametrize("name", sorted(C5_FIELDS))
+def test_int64_overflow_codes_match_jax(name, tmp_path):
+    x = C5_FIELDS[name]
+    with np.errstate(invalid="ignore"):
+        want = jax_refactor({"V": x}, method="psz3")
+    got = refactor_variables({"V": x}, method="psz3", device=CPU)
+    jax_save(want, str(tmp_path / "jax.prs"))
+    save_archive(got, str(tmp_path / "port.prs"))
+    assert (tmp_path / "port.prs").read_bytes() == \
+        (tmp_path / "jax.prs").read_bytes()
+    snaps = got.variables["V"].archive.snapshots
+    jst, tst = want.open(), got.open()
+    errors = []
+    for snap in snaps:
+        jd, jb = jst.reconstruct("V", snap.eps)
+        td, tb = tst.reconstruct("V", snap.eps)
+        np.testing.assert_array_equal(_bits(td), _bits(jd))
+        assert tb == jb
+        errors.append((float(np.max(np.abs(td.numpy() - x))), tb))
+    # the reference's defect, reproduced: the tightest rung is off by the
+    # whole value while its reported bound is tiny
+    true, bound = errors[-1]
+    assert true == float(np.max(np.abs(x))) > bound
+
+
 def test_ladder_and_selection_match_jax():
     for rng, n in ((1.0, 10), (37.5, 6), (1e-3, 1)):
         assert tsnap.default_snapshot_eps(rng, n=n) == \

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import repro._x64  # noqa: E402,F401  (float64 in the reference)
 from repro.core.refactor import refactor_variables as jax_refactor  # noqa: E402
+from repro.store import OpenOptions as JaxOpenOptions  # noqa: E402
 from repro.store import open_archive as jax_open  # noqa: E402
 from repro.store import save_archive as jax_save  # noqa: E402
 from repro.store import save_sharded_archive as jax_save_sharded  # noqa: E402
@@ -409,12 +410,29 @@ def test_open_archive_raises_without_cuda_unless_cpu(archive, tmp_path,
 
 
 def test_unported_archives_name_their_roadmap_item():
+    """The manifests the port once refused (ROADMAP A9: a journaled one, a
+    timeseries variable) now open as the reference opens them: the same
+    variables and kinds, an empty timeseries, no journal to replay from a
+    manifest dict."""
     base = {"format": "prstore", "version": 3, "method": "hb",
             "ranges": {}, "shapes": {}, "masks": {}, "segments": {}}
     cases = [({"journal": True, "variables": {}}, "A9"),
              ({"variables": {"T": {"kind": "timeseries"}}}, "A9")]
     for extra, item in cases:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            open_archive(dict(base, **extra),
-                         OpenOptions(blob_resolver=lambda b: None),
-                         device=CPU)
+        manifest = dict(base, **extra)
+        want = jax_open(json.loads(json.dumps(manifest)),
+                        JaxOpenOptions(blob_resolver=lambda b: None))
+        with open_archive(manifest,
+                          OpenOptions(blob_resolver=lambda b: None),
+                          device=CPU) as got:
+            assert {k: v.kind for k, v in got.variables.items()} == \
+                {k: v.kind for k, v in want.variables.items()}, item
+            for name, var in got.variables.items():
+                assert (var.latest_t, var.base_t) == \
+                    (want.variables[name].latest_t,
+                     want.variables[name].base_t) == (None, 0)
+                with pytest.raises(KeyError, match="no timesteps appended"):
+                    got.open().reconstruct(name, 1e-3)
+            assert got.refresh() == want.refresh() == 0
+            assert got.sealed is want.sealed is False
+        want.close()
