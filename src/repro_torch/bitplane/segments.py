@@ -6,7 +6,9 @@ once per plane) and keeps the group's decode state — the int64 magnitude
 state and the float64 values — on its device between requests.  Newly
 fetched planes are inflated on the host at fetch time and deferred; the
 next ``values()`` flushes them in ONE fused decode launch that ORs them
-into the device state, signs and scales.  Decoded values depend only on the
+into the device state, signs and scales — or, with a shared
+``serve.DecodeBatcher``, queues that flush so concurrent readers' flushes
+of one word width share one batched launch.  Decoded values depend only on the
 final plane count, whatever the fetch schedule and whatever the source: an
 in-memory group or a store-backed one that fetches checksum-verified
 segments through a ``SegmentFetcher`` (``repro_torch.store``).
@@ -32,6 +34,16 @@ from repro_torch.bitplane.encoder import (
 )
 from repro_torch.device import F64
 from repro_torch.kernels import ops
+
+
+class _Ready:
+    """Ticket of a decode launched inline (no batcher)."""
+
+    def __init__(self, res):
+        self._res = res
+
+    def result(self):
+        return self._res
 
 
 class PlaneSource:
@@ -78,15 +90,17 @@ class InMemoryPlaneSource(PlaneSource):
 
 class LevelStream:
     """Progressive reader state over one group's PlaneSource, decoding on
-    ``device``."""
+    ``device`` (through ``batcher``, a shared ``serve.DecodeBatcher``, when
+    one is given)."""
 
     def __init__(self, source: Union[PlaneSource, LevelBitplanes],
-                 device: torch.device):
+                 device: torch.device, batcher=None):
         if isinstance(source, LevelBitplanes):
             source = InMemoryPlaneSource(source)
         self.source = source
         self.meta = source.meta
         self.device = device
+        self.batcher = batcher
         self.fetched = 0
         self.bytes_fetched = 0
         # degraded mode: deepest reachable plane count once a segment of
@@ -163,11 +177,12 @@ class LevelStream:
         return self._sign_bytes
 
     def flush_submit(self):
-        """Phase 1 of the deferred flush: launch the fused decode of every
-        pending plane.  Returns the ``(mag, values)`` device tensors for
-        ``flush_collect``, or None when nothing is pending.  Split in two so
-        a caller draining many streams can launch them all before adopting
-        any result."""
+        """Phase 1 of the deferred flush: hand every pending plane to the
+        decode batcher, or launch the fused decode inline when there is
+        none.  Returns a ticket for ``flush_collect``, or None when nothing
+        is pending.  Split in two so a caller draining many streams can
+        submit them all before collecting any — one batched launch per
+        word width instead of one per stream."""
         if not self._pending_words:
             return None
         meta = self.meta
@@ -175,16 +190,20 @@ class LevelStream:
         shifts = np.concatenate(self._pending_shifts)
         self._pending_words.clear()
         self._pending_shifts.clear()
-        scale = np.float64(2.0) ** (meta.exponent - meta.nbits)
-        return ops.decode_values_fused(words, shifts, self._mag,
-                                       self._decoded_signs(), float(scale),
-                                       meta.count, self.device)
+        scale = float(np.float64(2.0) ** (meta.exponent - meta.nbits))
+        sb = self._decoded_signs()
+        if self.batcher is not None:
+            return self.batcher.submit_decode(words, shifts, self._mag, sb,
+                                              scale, meta.count, self.device)
+        return _Ready(ops.decode_values_fused(words, shifts, self._mag, sb,
+                                              scale, meta.count,
+                                              self.device))
 
     def flush_collect(self, ticket) -> None:
         """Phase 2: adopt the decode result as the stream's state."""
         if ticket is None:
             return
-        self._mag, self._values = ticket
+        self._mag, self._values = ticket.result()
 
     def values(self) -> torch.Tensor:
         """Decoded float64 values (count,) on the device."""

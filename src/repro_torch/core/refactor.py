@@ -42,7 +42,12 @@ package.
 ``contrib_budget_bytes`` caps the *retained* contributions at ``budget //
 (n·8)`` fields, finest levels first; the rest are computed for the sum and
 dropped (spilled), and rebuilt by a later refresh.  The sum is streamed in
-the same order, so outputs are bit-identical at any budget.
+the same order, so outputs are bit-identical at any budget.  A server-wide
+``contrib_pool`` (``repro_torch.serve.budget``) replaces the static cap:
+retention becomes a lease against one pool shared by every session, and
+the serve plane's hooks (``state_signature``, ``advance_to``,
+``adopt_reconstruction``, ``close``) let concurrent sessions coalesce
+duplicate requests (``repro_torch.serve.coalesce``).
 """
 from __future__ import annotations
 
@@ -174,7 +179,9 @@ class BitplaneVarArchive:
     def open_reader(self, options: SessionOptions,
                     device: torch.device) -> "_BitplaneVarReader":
         return _BitplaneVarReader(
-            self, device, contrib_budget_bytes=options.contrib_budget_bytes)
+            self, device, contrib_budget_bytes=options.contrib_budget_bytes,
+            contrib_pool=options.contrib_pool,
+            decode_batcher=options.decode_batcher)
 
 
 @dataclass
@@ -344,14 +351,22 @@ class _BitplaneVarReader:
     bit-identical outputs at any budget, including zero.  ``contrib_stats``
     is an optional external sink for the ``contrib_*`` counters (store-backed
     readers pass their fetcher's FetchStats, so one object reports transport
-    and residency)."""
+    and residency).
+
+    ``contrib_pool`` replaces the static cap with a server-wide
+    ``ContribBudgetPool``: retention becomes a borrow against one shared
+    pool (hottest variables win), and slot mutation moves under the pool's
+    lock so cross-session reclaim is race-free; outputs stay bit-identical.
+    ``decode_batcher`` routes the streams' decodes and the contribution
+    rebuilds through a shared ``DecodeBatcher``."""
 
     def __init__(self, var, device: torch.device,
                  contrib_budget_bytes: Optional[int] = None,
-                 contrib_stats=None):
+                 contrib_stats=None, contrib_pool=None, decode_batcher=None):
         self.var = var
         self.device = device
-        self.streams = [LevelStream(src, device)
+        self._batcher = decode_batcher
+        self.streams = [LevelStream(src, device, batcher=decode_batcher)
                         for src in var.plane_sources()]
         self._idx_dev: Dict[int, torch.Tensor] = {}
         self._recon: Optional[torch.Tensor] = None
@@ -364,7 +379,9 @@ class _BitplaneVarReader:
         self._field_nbytes = int(np.prod(var.padded_shape)) * 8
         self.contrib_stats = contrib_stats if contrib_stats is not None \
             else ContribStats()
-        if contrib_budget_bytes is None:
+        self._pool = contrib_pool
+        if contrib_pool is not None or contrib_budget_bytes is None:
+            # unbounded, or the pool arbitrates dynamically
             self._resident_cap = ngroups
         else:
             self._resident_cap = min(
@@ -379,6 +396,19 @@ class _BitplaneVarReader:
     def _note_resident(self, delta_fields: int) -> None:
         self.contrib_stats.contrib_note(
             delta_bytes=delta_fields * self._field_nbytes)
+
+    def _pool_set_contrib(self, slot: int, value) -> None:
+        """Slot mutation for pooled readers — called only by the pool,
+        under its lock (deposit on retain, clear on reclaim or release), so
+        a refresh on one session and a reclaim driven by another never
+        interleave half-way.  Residency accounting moves with the slot."""
+        had = self._contribs[slot] is not None
+        self._contribs[slot] = value
+        has = value is not None
+        if has and not had:
+            self._note_resident(+1)
+        elif had and not has:
+            self._note_resident(-1)
 
     @property
     def bytes_fetched(self) -> int:
@@ -542,10 +572,28 @@ class _BitplaneVarReader:
                 self.var.group_indices[l]).to(self.device)
         return idx
 
-    def _compute_contrib(self, l: int) -> torch.Tensor:
-        """Contribution of group ``l``: its decoded values scattered onto
-        the padded grid, partially recomposed from its own level down (a
-        group with no planes contributes zeros)."""
+    def _contrib_submit(self, l: int):
+        """Phase 1 of a contribution rebuild: group ``l``'s decoded values
+        scattered onto the padded grid and partially recomposed from its own
+        level down.  With a shared DecodeBatcher the rebuild is queued there
+        (same-shape rebuilds across readers merge into one dispatch);
+        without one it is computed when collected, so a refresh holds one
+        rebuilt field at a time, as a streamed sum should.  Returns a handle
+        for ``_contrib_collect``."""
+        if self._batcher is None or self.streams[l].fetched == 0:
+            return ("inline", None)
+        shape, levels = self.var.padded_shape, self.var.levels
+        q = self._ip_quantum(l) if self.var.method == "ip" else None
+        return ("ticket", self._batcher.submit_recompose(
+            self._group_idx_dev(l), self.streams[l].values(), shape, levels,
+            min(l, levels - 1), quantum=q))
+
+    def _contrib_collect(self, l: int, handle) -> torch.Tensor:
+        """Phase 2: the contribution field (zeros for a group with no
+        planes)."""
+        kind, ticket = handle
+        if kind == "ticket":
+            return ticket.result()
         shape, levels = self.var.padded_shape, self.var.levels
         s = self.streams[l]
         if s.fetched == 0:
@@ -559,6 +607,11 @@ class _BitplaneVarReader:
                                              start, self._ip_quantum(l))
         return scatter_recompose_from(self._group_idx_dev(l), s.values(),
                                       shape, levels, start)
+
+    def _compute_contrib(self, l: int) -> torch.Tensor:
+        """Contribution of group ``l``: a pure function of its decoded
+        values."""
+        return self._contrib_collect(l, self._contrib_submit(l))
 
     def _refresh_hb_incremental(self) -> None:
         """Recompute only the contributions whose plane counts moved, then
@@ -574,23 +627,40 @@ class _BitplaneVarReader:
         if not any(stale) and self._recon is not None:
             return
         st = self.contrib_stats
-        # launch every stream's deferred decode before adopting any result
+        # phase 1: submit every stream's deferred decode before collecting
+        # any, so a shared DecodeBatcher can merge this reader's flushes —
+        # and concurrent sessions' — into one launch per word width
         flushes = [(s, s.flush_submit()) for s in self.streams]
         for s, t in flushes:
             s.flush_collect(t)
+        # phase 2: the same submit-then-collect for the contribution
+        # rebuilds this refresh needs (collected inside the fixed-order sum)
+        pending = {l: self._contrib_submit(l) for l in range(levels, -1, -1)
+                   if self._contribs[l] is None or stale[l]}
         total = torch.zeros(self.var.padded_shape, dtype=F64,
                             device=self.device)
         for l in range(levels, -1, -1):       # fixed summation order
             c = self._contribs[l]
-            if c is None or stale[l]:
+            # a pooled slot can also be reclaimed after ``pending`` was
+            # built, by another session or by this refresh's own retain of
+            # a coarser level: rebuild it here, inline
+            if l in pending or c is None:
                 if c is None and not stale[l]:
                     # planes did not move — an unbounded reader would have
                     # this field cached; the rebuild is pure budget cost
                     st.contrib_note(recomputes=1)
-                c = self._compute_contrib(l)
+                c = self._contrib_collect(l, pending.get(l, ("inline", None)))
                 self._contrib_fetched[l] = self.streams[l].fetched
             total += c
-            if l < self._resident_cap:
+            if self._pool is not None:
+                # pooled retention: a field-sized lease against the
+                # server-wide pool, deposited into the slot under the pool's
+                # lock (colder holdings of any session reclaimed first); a
+                # denial spills this field instead
+                if not self._pool.retain(self, slot=l, level=l,
+                                         nbytes=self._field_nbytes, value=c):
+                    st.contrib_note(spills=1)
+            elif l < self._resident_cap:
                 if self._contribs[l] is None:
                     self._note_resident(+1)
                 self._contribs[l] = c
@@ -613,10 +683,47 @@ class _BitplaneVarReader:
                             self.var.orig_shape)
         self._full_state = state
 
+    # -- serve-plane hooks (repro_torch.serve.coalesce / budget) ----------
+
     def state_signature(self) -> Tuple[int, ...]:
         """Decode state as the tuple of per-group fetched-plane counts; the
-        reconstruction is a pure function of it."""
+        reconstruction is a pure function of it, which is what makes
+        cross-session coalescing sound: two readers with equal signatures
+        reconstruct bit-identically."""
         return tuple(s.fetched for s in self.streams)
+
+    def advance_to(self, eps: float) -> bool:
+        """Move every stream exactly as ``request(eps)`` would, without
+        recomposing — the coalescer's waiter path (the leader's fetch made
+        these planes cache-hot).  Returns True if any stream moved."""
+        moved = False
+        for s, k in zip(self.streams, self._plane_targets(eps)):
+            if s.fetch_to_planes(k):
+                moved = True
+        return moved
+
+    def adopt_reconstruction(self, recon: torch.Tensor) -> None:
+        """Install an externally computed reconstruction for the current
+        decode state (coalescing fan-out).  Contribution slots whose plane
+        counts moved since they were cached are dropped — a later refresh
+        must not serve them; the slots that did not move stay valid."""
+        for l in range(self.var.levels + 1):
+            if self._contrib_fetched[l] != self.streams[l].fetched:
+                if self._contribs[l] is not None:
+                    if self._pool is not None:
+                        self._pool.release(self, l)   # clears slot + counts
+                    else:
+                        self._note_resident(-1)
+                        self._contribs[l] = None
+                self._contrib_fetched[l] = self.streams[l].fetched
+        self._recon = recon
+        self._full_state = self.state_signature()
+
+    def close(self) -> None:
+        """Return pooled leases (the serve plane closes sessions; a reader
+        without a pool has nothing to give back)."""
+        if self._pool is not None:
+            self._pool.release_owner(self)
 
 
 class _SnapshotVarReader:
@@ -640,12 +747,24 @@ class RetrievalSession:
     — decoding on the archive's device.  Every variable builds its own
     reader; contribution counters, availability and prefetch hints reach
     the readers that have them (bitplane readers, store-backed snapshot
-    readers) and skip the others."""
+    readers) and skip the others.
+
+    Session policy comes from a :class:`repro_torch.options.SessionOptions`
+    (prefetch depth, contribution budget or shared pool, decode batcher).
+    ``coalescer`` (assignable after construction) routes ``reconstruct``
+    through cross-session single-flight."""
 
     def __init__(self, archive,
                  options: Optional[SessionOptions] = None):
         self.archive = archive
         self.options = options if options is not None else SessionOptions()
+        self.contrib_budget_bytes = self.options.contrib_budget_bytes
+        self.contrib_pool = self.options.contrib_pool
+        self.coalescer = None
+        # how many reassign_eb reduction steps ahead the retrieval loop may
+        # hint to the fetcher (depth 1 is always a prefix of the next
+        # round's fetch, so nothing speculative is ever wasted)
+        self.prefetch_depth = self.options.prefetch_depth
         self.device = archive.device
         self.readers: Dict[str, object] = {
             name: var.open_reader(self.options, archive.device)
@@ -726,8 +845,15 @@ class RetrievalSession:
     def reconstruct(self, name: str, eps: float) -> Tuple[torch.Tensor,
                                                           float]:
         """Reconstruct a variable to L-inf bound <= eps; returns the data on
-        the device (outlier-masked points exact) and the achieved bound."""
-        data, achieved = self.reader(name).request(eps)
+        the device (outlier-masked points exact) and the achieved bound.
+        With a ``coalescer`` attached (serve plane), concurrent duplicate
+        requests across sessions collapse into one fetch + recompose —
+        bit-identical results by the plane-count invariant."""
+        reader = self.reader(name)
+        if self.coalescer is not None:
+            data, achieved = self.coalescer.reconstruct(self, name, eps)
+        else:
+            data, achieved = reader.request(eps)
         mask = self.archive.masks.get(name)
         if mask is not None:
             if not self._mask_charged[name]:
@@ -756,6 +882,15 @@ class RetrievalSession:
         if mask is not None:
             eb[mask.on(self.device)[0]] = 0.0
         return eb
+
+    def close(self) -> None:
+        """Release per-reader resources (pooled contribution leases).  The
+        serve plane calls this when it retires a sticky session; sessions
+        without a pool have nothing to release."""
+        for r in self.readers.values():
+            close = getattr(r, "close", None)
+            if close is not None:
+                close()
 
     def bitrate(self, names: Optional[Sequence[str]] = None) -> float:
         """Bits per element over the referenced variables (paper §III-C)."""

@@ -200,6 +200,19 @@ def retrieve_qoi_controlled(session,
                     cur = max(cur / reduction, floors[v])
                 lad[t] = cur
             ladders[v] = lad
+        # -- async segment prefetch: reassign always lands at ladder state
+        # t_star >= 1 (state 0 is the current, still-violating bound), so
+        # the planes for ladder[depth = 1] are a guaranteed prefix of the
+        # next round's fetch.  Hint these predicted eps now, so store-backed
+        # sessions move segments in the background while the ladder
+        # estimate below and the next estimator round run; depths > 1 hide
+        # more latency but may speculate past t_star.
+        depth = int(np.clip(getattr(session, "prefetch_depth", 1),
+                            1, LADDER_STEPS))
+        for v in involved:
+            predicted = float(ladders[v][depth])
+            if predicted > 0.0:
+                session.prefetch(v, min(eps[v], predicted), certain=False)
         _, pb = _estimate(
             req.expr,
             {v: torch.full((LADDER_STEPS,), pt_vals[v], dtype=F64,

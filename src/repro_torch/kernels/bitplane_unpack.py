@@ -9,6 +9,11 @@ JAX reader runs for groups of at least 4096 coefficients.  The CUDA kernel
 is ``bitplane_decode`` in ``csrc/bitplane.cu``; its note there says what
 bounds it on an H100 (bytes) and how its design follows from that.
 
+:func:`bitplane_unpack_batch` is the batched form the serve plane's decode
+batcher runs (replacing the vmapped ``ops._decode_fused_batch``): B groups
+of one word width, each with its own plane count, in one launch of
+``bitplane_decode_batch`` over a grid of (tiles, B) blocks.
+
 :func:`bitplane_unpack` launches the kernel for CUDA tensors and runs the
 plain version :func:`bitplane_unpack_plain` for CPU tensors; for any other
 device it raises.  There is no size cutover: every group decodes through the
@@ -16,12 +21,14 @@ kernel on the card, however small.  The two are bit-equal.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import decode_fused_ref
+from repro_torch.kernels.ref import bitplane_unpack_batch_plain, \
+    decode_fused_ref
 
 MAX_PLANES = 64
 
@@ -114,3 +121,84 @@ def bitplane_unpack(words: torch.Tensor, shifts: torch.Tensor,
 
 
 bitplane_unpack.launches = 0
+
+
+def _check_batch(words, shifts, states, sign_bytes, scales) -> None:
+    nb = len(words)
+    if not (len(shifts) == len(states) == len(sign_bytes) == len(scales)
+            == nb):
+        raise ValueError(f"bitplane_unpack_batch: {nb} words but "
+                         f"{len(shifts)} shifts, {len(states)} states, "
+                         f"{len(sign_bytes)} sign bytes, {len(scales)} "
+                         f"scales")
+    for args in zip(words, shifts, states, sign_bytes):
+        _check(*args)
+    if len({w.shape[1] for w in words}) > 1 or \
+            len({w.device for w in words}) > 1:
+        raise ValueError("bitplane_unpack_batch: the groups must share one "
+                         "word width and one device")
+
+
+def bitplane_unpack_batch(words: Sequence[torch.Tensor],
+                          shifts: Sequence[torch.Tensor],
+                          states: Sequence[Optional[torch.Tensor]],
+                          sign_bytes: Sequence[Optional[torch.Tensor]],
+                          scales: Sequence[float]
+                          ) -> List[Tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]]:
+    """:func:`bitplane_unpack` of B groups at once: item b decodes
+    ``words[b]`` (P_b, W) with ``shifts[b]``, ``states[b]``,
+    ``sign_bytes[b]`` and ``scales[b]``, every group of the same W but each
+    with its own plane count P_b <= 64.  Returns one ``(mag, vals)`` per
+    group, each its own tensors, bit-equal to B calls of
+    :func:`bitplane_unpack`.  One launch on CUDA (none for W = 0 or B = 0),
+    the plain version on the CPU."""
+    if not words:
+        return []
+    dev = words[0].device
+    if dev.type == "cpu":
+        _check_batch(words, shifts, states, sign_bytes, scales)
+        if any(s.numel() and (int(s.min()) < 0 or int(s.max()) > 63)
+               for s in shifts):
+            raise ValueError("bitplane_unpack_batch: shifts must be in "
+                             "[0, 63]")
+        return bitplane_unpack_batch_plain(words, shifts, states, sign_bytes,
+                                           scales)
+    if dev.type != "cuda":
+        raise ValueError(f"bitplane_unpack_batch: unsupported device {dev}")
+    _check_batch(words, shifts, states, sign_bytes, scales)
+    nb, nwords = len(words), words[0].shape[1]
+    out = [(torch.empty(nwords * 32, dtype=torch.int64, device=dev),
+            None if sb is None else
+            torch.empty(nwords * 32, dtype=torch.float64, device=dev))
+           for sb in sign_bytes]
+    if nwords == 0:
+        return out
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    # the (7, B) table of the kernel's note, and the (B,) scales as one
+    # more row of float64 bits: one small copy to the card per launch, from
+    # pinned memory so the host does not wait for the queued work
+    table = np.array(
+        [[ptr(w) for w in words], [ptr(s) for s in shifts],
+         [w.shape[0] for w in words], [ptr(st) for st in states],
+         [ptr(sb) for sb in sign_bytes], [ptr(m) for m, _ in out],
+         [ptr(v) for _, v in out],
+         np.asarray(scales, dtype=np.float64).view(np.int64)],
+        dtype=np.int64)
+    table_dev = torch.from_numpy(table).pin_memory().to(dev,
+                                                        non_blocking=True)
+    lib = build.load("bitplane")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.bitplane_decode_batch(
+            table_dev.data_ptr(), table_dev[7].view(torch.float64).data_ptr(),
+            nb, nwords, stream)
+    build.check(status, "bitplane_decode_batch")
+    bitplane_unpack_batch.launches += 1
+    return out
+
+
+bitplane_unpack_batch.launches = 0

@@ -39,6 +39,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # words, shifts, nplanes, nwords, state, mag_out, sign_bytes, scale,
         # vals_out, stream
         "bitplane_decode": (_P, _P, _I, _LL, _P, _P, _P, _D, _P, _P),
+        # table (7, B) int64, scales (B,) f64, B, nwords, stream
+        "bitplane_decode_batch": (_P, _P, _I, _LL, _P),
     },
     "level_vtotal": {
         # even, odd, rows, m, dtype (0 f32, 1 f64), out, stream

@@ -166,20 +166,23 @@ bitplane_encode_kernel(const double* __restrict__ c, double scale,
 // and lane i writes coefficient 32w+i, so every store is coalesced.  P = 0
 // copies the state; a null state means zeros, and a null vals_out
 // magnitudes only.
-__global__ void __launch_bounds__(kThreads)
-bitplane_decode_kernel(const uint32_t* __restrict__ words,
-                       const int64_t* __restrict__ shifts, int nplanes,
-                       int64_t nwords,
-                       const unsigned long long* __restrict__ state,
-                       unsigned long long* __restrict__ mag_out,
-                       const uint8_t* __restrict__ sign_bytes, double scale,
-                       double* __restrict__ vals_out) {
+//
+// decode_tile is the whole body for the tile ``block`` of one group; the
+// solo kernel and the batched one below both inline it, so the solo
+// kernel compiles as it did before the batched one existed.
+__device__ __forceinline__ void
+decode_tile(const uint32_t* __restrict__ words,
+            const int64_t* __restrict__ shifts, int nplanes, int64_t nwords,
+            const unsigned long long* __restrict__ state,
+            unsigned long long* __restrict__ mag_out,
+            const uint8_t* __restrict__ sign_bytes, double scale,
+            double* __restrict__ vals_out, int64_t block) {
   __shared__ uint32_t tile[kMaxPlanes][kTile + 1];
   __shared__ int sh[kMaxPlanes];
   __shared__ unsigned long long bitmask[kMaxPlanes];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t w0 = block * kTile;
   const int tile_words = static_cast<int>(
       nwords - w0 < kTile ? nwords - w0 : static_cast<int64_t>(kTile));
   for (unsigned k = threadIdx.x; k < static_cast<unsigned>(nplanes) * kTile;
@@ -240,6 +243,54 @@ bitplane_decode_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+bitplane_decode_kernel(const uint32_t* __restrict__ words,
+                       const int64_t* __restrict__ shifts, int nplanes,
+                       int64_t nwords,
+                       const unsigned long long* __restrict__ state,
+                       unsigned long long* __restrict__ mag_out,
+                       const uint8_t* __restrict__ sign_bytes, double scale,
+                       double* __restrict__ vals_out) {
+  decode_tile(words, shifts, nplanes, nwords, state, mag_out, sign_bytes,
+              scale, vals_out, blockIdx.x);
+}
+
+// bitplane_decode_batch replaces repro/kernels/ops.py::_decode_fused_batch,
+// the jax.vmap of _decode_fused_body over a (B, P, W) stack of groups of
+// one word width that the serve plane's decode batcher dispatches once per
+// shape bucket and tick.
+//
+// Bound on this card: bytes, the sum of its B groups' solo bounds (each
+// item's own plane count, not the bucket's 64 plane slots: the kernel never
+// reads a slot past an item's planes).
+//
+// Design: one launch over a grid of (ceil(W/64), B) blocks; block (x, b)
+// runs the solo kernel's body on tile x of group b.  The groups are not
+// stacked: ``table`` is a (7, B) int64 array on the card whose column b
+// holds group b's words, shifts, plane count, state (0 = zeros), sign bytes
+// (0 = magnitudes only), magnitude output and value output (0 likewise),
+// and ``scales`` its (B,) float64 scales, so each group keeps its own
+// tensors and plane count and nothing is copied to batch them.  A block
+// reads its column once (uniform loads), then decodes exactly as the solo
+// kernel: bit-equal to B solo launches.
+enum : int { kWords, kShifts, kPlanes, kState, kSigns, kMag, kVals };
+
+__global__ void __launch_bounds__(kThreads)
+bitplane_decode_batch_kernel(const long long* __restrict__ table,
+                             const double* __restrict__ scales,
+                             int64_t nwords) {
+  const int b = blockIdx.y;
+  const int nb = gridDim.y;
+  const long long* col = table + b;
+  decode_tile(reinterpret_cast<const uint32_t*>(col[kWords * nb]),
+              reinterpret_cast<const int64_t*>(col[kShifts * nb]),
+              static_cast<int>(col[kPlanes * nb]), nwords,
+              reinterpret_cast<const unsigned long long*>(col[kState * nb]),
+              reinterpret_cast<unsigned long long*>(col[kMag * nb]),
+              reinterpret_cast<const uint8_t*>(col[kSigns * nb]), scales[b],
+              reinterpret_cast<double*>(col[kVals * nb]), blockIdx.x);
+}
+
 }  // namespace
 
 extern "C" int bitplane_encode(const void* c, double scale, long long n,
@@ -268,5 +319,17 @@ extern "C" int bitplane_decode(const void* words, const void* shifts,
       static_cast<unsigned long long*>(mag_out),
       static_cast<const uint8_t*>(sign_bytes), scale,
       static_cast<double*>(vals_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bitplane_decode_batch(const void* table, const void* scales,
+                                     int nbatch, long long nwords,
+                                     void* stream) {
+  const dim3 blocks(static_cast<unsigned>((nwords + kTile - 1) / kTile),
+                    static_cast<unsigned>(nbatch));
+  bitplane_decode_batch_kernel<<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(table),
+      static_cast<const double*>(scales), nwords);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,26 @@
 """Entry points over the kernel wrappers.
 
 Counterpart of ``repro/kernels/ops.py``: the codec's two kernels on the
-main path, and ``level_surplus`` / ``vtotal_with_bound`` over the
-hierarchical-surplus and fused-Vtotal kernels.  Unlike the JAX module there
-is one decode path: on a CUDA device every call launches the CUDA kernel,
-whatever the group size, and on the CPU it runs the kernel's plain version.
-The kernel takes a run-time plane count and 64-bit shifts, so the JAX
-module's plane padding (which bounds its jit cache) and hi/lo uint32 split
-have no counterpart here.
+main path, the batched decode of the serve plane, and ``level_surplus`` /
+``vtotal_with_bound`` over the hierarchical-surplus and fused-Vtotal
+kernels.  Unlike the JAX module there is one decode path: on a CUDA device
+every call launches the CUDA kernel, whatever the group size, and on the
+CPU it runs the kernel's plain version.  The kernels take a run-time plane
+count and 64-bit shifts, so the JAX module's hi/lo uint32 split has no
+counterpart, and its plane padding (which bounds its jit cache) survives
+only as the decode batcher's bucket key (:func:`plane_slots`): no zero
+plane is ever built or read.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.bitplane_pack import bitplane_pack
-from repro_torch.kernels.bitplane_unpack import bitplane_unpack
+from repro_torch.kernels.bitplane_unpack import bitplane_unpack, \
+    bitplane_unpack_batch
 from repro_torch.kernels.hier_level import hier_level_surplus
 from repro_torch.kernels.qoi_vtotal import qoi_vtotal
 
@@ -37,6 +40,18 @@ def unpack_bitplanes(words: torch.Tensor, shifts: torch.Tensor,
     (count,) int64: OR over planes of (unpacked bits << shift)."""
     mag, _ = bitplane_unpack(words, shifts)
     return mag[:count]
+
+
+def plane_slots(nplanes: int, slots: int = 0) -> int:
+    """The plane-axis length the reference's fused decode pads a flush of
+    ``nplanes`` planes to: the next power of two of max(nplanes, 1,
+    ``slots``) (``repro/kernels/ops.py::_plane_pad``).  The decode batcher
+    keys its buckets on it, as the reference does; the kernels read only
+    the true planes."""
+    n = 1
+    while n < max(int(nplanes), 1, int(slots)):
+        n <<= 1
+    return n
 
 
 def prepare_fused_decode(words: np.ndarray, shifts, state, sign_bytes,
@@ -84,6 +99,20 @@ def decode_values_fused(words: np.ndarray, shifts, state, sign_bytes,
                                          count, device)
     mag, vals = bitplane_unpack(w, sh, st, sb, scale)
     return mag, vals[:count]
+
+
+def decode_values_fused_batch(inputs: Sequence[tuple],
+                              scales: Sequence[float],
+                              counts: Sequence[int]
+                              ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """B decodes of one word width in one launch: ``inputs`` are
+    :func:`prepare_fused_decode` results ``(words, shifts, state,
+    sign_bytes)``, each with its own plane count.  Returns one ``(mag_full,
+    values)`` per item, as :func:`decode_values_fused` would, bit for
+    bit."""
+    words, shifts, states, signs = zip(*inputs)
+    out = bitplane_unpack_batch(words, shifts, states, signs, scales)
+    return [(mag, vals[:count]) for (mag, vals), count in zip(out, counts)]
 
 
 def as_words(words: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -3,10 +3,9 @@
 Counterpart of ``repro/options.py``: :class:`OpenOptions` (how a store
 archive is opened: transport, verification, caching, fault tolerance) and
 :class:`SessionOptions` (how one retrieval session reads), reduced to the
-fields the readers, the store plane and live archives read.  The
-reference's session fields for the serve plane (prefetch depth, shared
-contribution pool, decode batcher) and its shim for pre-v4 loose keyword
-arguments have no counterpart here.
+fields the readers, the store plane, live archives and the serve plane
+read.  The reference's shim for pre-v4 loose keyword arguments has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -59,14 +58,32 @@ class OpenOptions:
 class SessionOptions:
     """How one retrieval session reads.
 
+      * ``prefetch_depth`` — how many ``reassign_eb`` reduction steps ahead
+        the retrieval loop may hint to the fetcher;
       * ``contrib_budget_bytes`` — per-variable cap on each bitplane
         reader's retained contribution cache (None = unbounded; outputs are
-        bit-identical at any budget).
+        bit-identical at any budget);
+      * ``contrib_pool`` — server-wide
+        :class:`repro_torch.serve.budget.ContribBudgetPool` replacing the
+        static cap (takes precedence when both are set);
+      * ``decode_batcher`` — shared
+        :class:`repro_torch.serve.batch.DecodeBatcher` merging this
+        session's decode / recompose work with every other session's into
+        one launch per shape bucket and serve tick (None = per-reader
+        launches; results are bit-identical either way).
     """
+    prefetch_depth: int = 1
     contrib_budget_bytes: Optional[int] = None
+    contrib_pool: Optional[Any] = None
+    decode_batcher: Optional[Any] = None
 
     @classmethod
     def memory_bounded(cls, budget_bytes: int) -> "SessionOptions":
         """Cap each variable's resident recompose state; spilled levels are
         rebuilt on demand (outputs stay bit-identical)."""
         return cls(contrib_budget_bytes=int(budget_bytes))
+
+    @classmethod
+    def pooled(cls, pool) -> "SessionOptions":
+        """Serve-plane preset: retention borrows from one shared pool."""
+        return cls(contrib_pool=pool)

@@ -371,7 +371,9 @@ class StoreBitplaneVar:
         # object reports transport traffic AND reader residency/spills
         return _BitplaneVarReader(
             self, device, contrib_budget_bytes=options.contrib_budget_bytes,
-            contrib_stats=self._fetcher.stats)
+            contrib_stats=self._fetcher.stats,
+            contrib_pool=options.contrib_pool,
+            decode_batcher=options.decode_batcher)
 
 
 class _SnapshotHandle:

@@ -60,9 +60,12 @@ FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
                                        REPO / "chip_smoke.py",
+                                       REPO / "examples" /
+                                       "serve_retrieval_torch.py",
                                        REPO / "tools" / "time_bitplane.py",
                                        REPO / "tools" / "time_fma.py",
-                                       REPO / "tools" / "time_thomas.py"]))
+                                       REPO / "tools" / "time_thomas.py",
+                                       REPO / "tools" / "time_serve.py"]))
 def test_no_jax_or_repro_import_statement(path):
     src = (REPO / path).read_text()
     assert not FORBIDDEN.findall(src), path
@@ -93,8 +96,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             cls.build(x, [1e-2])
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls.build(x, [1e-2], device="cpu").open()
+    # the serve plane: the server and ``python -m repro_torch.launch.serve``
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.RetrievalServer(fields)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--n", "64", "--requests", "1"])
     # an explicit CPU request is honoured
     assert refactor_variables(fields, device="cpu").device.type == "cpu"
+    server = serve.RetrievalServer(fields, device="cpu")
+    assert server.archive.device.type == "cpu"
+    server.close()
     assert sz_decompress(snap, device="cpu").device.type == "cpu"
 
 

@@ -42,6 +42,23 @@ def test_grid_helpers_match(shape):
     assert np.array_equal(jh.unpad(pj, oj), th.unpad(pt, ot))
 
 
+@pytest.mark.parametrize("shape", ((2 ** 16 + 1,), (17, 33), (9, 17, 33),
+                                   (65, 3), (3,)))
+def test_level_map_equals_the_reference_at_every_level_count(shape):
+    """The port's one-pass ``_v2`` (lowest set bit) against the reference's
+    halving loop: equal valuations on 1 .. 2^20 and on large seeded ints,
+    and equal level maps at every level count a grid takes."""
+    idx = np.concatenate([np.arange(1, 1 << 20),
+                          np.random.default_rng(0).integers(1, 2 ** 52,
+                                                            1 << 12)])
+    got, want = th._v2(idx), jh._v2(idx)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    for levels in range(jh.grid_levels(shape) + 1):
+        want = jh.level_map(shape, levels)
+        got = th.level_map(shape, levels)
+        assert got.dtype == want.dtype and np.array_equal(got, want), levels
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_decompose_and_recompose_bit_identical(shape):
     x, _, levels = _field(shape, len(shape))

@@ -60,10 +60,14 @@ def _compile(sources):
 
 
 def _load(lib: Path):
+    """The built library with the C signatures of the entry points it has
+    (an older source may lack the batched decode, which is not timed
+    here)."""
     dll = ctypes.CDLL(str(lib))
     for fn, argtypes in build.SIGNATURES["bitplane"].items():
-        getattr(dll, fn).argtypes = list(argtypes)
-        getattr(dll, fn).restype = ctypes.c_int
+        if hasattr(dll, fn):
+            getattr(dll, fn).argtypes = list(argtypes)
+            getattr(dll, fn).restype = ctypes.c_int
     return dll
 
 
