@@ -22,6 +22,7 @@ Retrieving the first k planes bounds the coefficient error by
 """
 from __future__ import annotations
 
+from concurrent.futures import Executor
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -75,6 +76,13 @@ class LevelBitplanes:
     _crcs: Optional[Tuple[Tuple[int, ...], int]] = field(
         default=None, repr=False, compare=False)
 
+    def plane_nbytes(self, b: int) -> int:
+        return len(self.planes[b])
+
+    @property
+    def sign_nbytes(self) -> int:
+        return len(self.signs)
+
     @property
     def total_nbytes(self) -> int:
         if self.exponent is None:
@@ -99,9 +107,12 @@ class LevelBitplanes:
         return self._crcs
 
 
-def encode_level(coeffs: torch.Tensor,
-                 nbits: int = DEFAULT_NBITS) -> LevelBitplanes:
-    """Encode one group's coefficients (a float64 tensor on any device)."""
+def encode_level(coeffs: torch.Tensor, nbits: int = DEFAULT_NBITS,
+                 executor: Optional[Executor] = None) -> LevelBitplanes:
+    """Encode one group's coefficients (a float64 tensor on any device).
+    With ``executor`` (a process pool: the codecs run Python loops under
+    the interpreter lock) the planes' entropy stage is mapped over it; the
+    blobs are the same."""
     c = coeffs.reshape(-1).to(F64).contiguous()
     n = c.numel()
     amax = float(c.abs().max()) if n else 0.0
@@ -118,21 +129,27 @@ def encode_level(coeffs: torch.Tensor,
     words = ops.encode_magnitude_planes(c, float(scale), nbits)
     words = words.cpu().numpy().view(np.uint32)
     density = _popcounts(words) / float(n)
-    planes = [encode_tagged(words[b].tobytes(), density=float(density[b]))
-              for b in range(nbits)]
+    datas = (words[b].tobytes() for b in range(nbits))
+    dens = (float(density[b]) for b in range(nbits))
+    planes = list((executor.map if executor else map)(encode_tagged, datas,
+                                                      dens))
     signs = encode_tagged(np.packbits((c < 0).cpu().numpy()).tobytes())
     return LevelBitplanes(count=n, exponent=e, nbits=nbits, planes=planes,
                           plane_raw_bits=n, signs=signs)
 
 
 def inflate_planes(count: int, nbits: int, blobs: Sequence[bytes],
-                   start: int) -> Tuple[np.ndarray, np.ndarray]:
+                   start: int, executor: Optional[Executor] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Encoded plane blobs -> ((P, W) uint32 packed words, (P,) int64
-    shifts) for the device decode.  Pure inflation, on the host."""
+    shifts) for the device decode.  Pure inflation, on the host (mapped
+    over ``executor`` when one is given)."""
     nwords = (count + 31) // 32
     words = np.empty((len(blobs), nwords), dtype=np.uint32)
-    for i, blob in enumerate(blobs):
-        words[i] = _inflate_plane(blob, nwords)
+    planes = (executor.map if executor else map)(
+        _inflate_plane, blobs, [nwords] * len(blobs))
+    for i, plane in enumerate(planes):
+        words[i] = plane
     shifts = np.asarray([nbits - 1 - b
                          for b in range(start, start + len(blobs))],
                         dtype=np.int64)
@@ -177,15 +194,17 @@ def values_from_planes(count: int, exponent: Optional[int], nbits: int,
     return torch.where(torch.from_numpy(signs).to(mag.device), -vals, vals)
 
 
-def decode_prefix(lbp: LevelBitplanes, k: int,
-                  device: DeviceLike = None) -> torch.Tensor:
+def decode_prefix(lbp: LevelBitplanes, k: int, device: DeviceLike = None,
+                  executor: Optional[Executor] = None) -> torch.Tensor:
     """First-k-planes decode of a group: one fused decode launch (unpack,
-    sign and scale) on ``device`` (default CUDA)."""
+    sign and scale) on ``device`` (default CUDA); the planes inflate on the
+    host, over ``executor`` when one is given."""
     device = resolve_device(device)
     if lbp.exponent is None:
         return torch.zeros(lbp.count, dtype=F64, device=device)
     k = min(k, lbp.nbits)
-    words, shifts = inflate_planes(lbp.count, lbp.nbits, lbp.planes[:k], 0)
+    words, shifts = inflate_planes(lbp.count, lbp.nbits, lbp.planes[:k], 0,
+                                   executor)
     scale = np.float64(2.0) ** (lbp.exponent - lbp.nbits)
     _, vals = ops.decode_values_fused(
         words, shifts, None, sign_plane_bytes(lbp.count, lbp.signs),

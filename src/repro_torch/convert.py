@@ -1,4 +1,5 @@
-"""Carry an archive across as plain Python and numpy data.
+"""Carry an archive, or a model's parameters, across as plain Python and
+numpy data.
 
 :func:`archive_to_arrays` flattens a port :class:`Archive` into a dict of
 ints, floats, tuples, bytes and numpy arrays; :func:`archive_from_arrays`
@@ -27,12 +28,18 @@ Layout::
                         "dtypes": [str], "amax": float, "blobs": [bytes]}]}
 
 ``pred_planes`` (the ip method's prediction depth) may be left out.
+
+:func:`params_from_arrays` and :func:`params_to_arrays` do the same for a
+dense model's parameter tree (nested dicts of numpy arrays, the JAX
+package's ``jax.tree.map(np.asarray, params)``), so both packages compute
+from the same weights.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from repro_torch.bitplane.encoder import LevelBitplanes
 from repro_torch.compressors.snapshots import DeltaSnapshotArchive, \
@@ -46,7 +53,9 @@ from repro_torch.core.refactor import (
     BitplaneVarArchive,
     SnapshotVarArchive,
 )
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DTYPES, DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 
 
 def _snapshot_var(v: Dict[str, Any]) -> SnapshotVarArchive:
@@ -144,3 +153,43 @@ def archive_to_arrays(archive) -> Dict[str, Any]:
                   for k, m in archive.masks.items()},
         "variables": variables,
     }
+
+
+def _tensor(a, dtype, device):
+    """A numpy array (bfloat16 ones included, read by their bits, so no
+    bfloat16 numpy type is needed) -> a tensor of ``dtype`` on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_arrays(tree: Dict[str, Any], cfg: ModelConfig,
+                       device: DeviceLike = None) -> Transformer:
+    """A model whose parameters are ``tree``'s values, each leaf cast to
+    ``cfg.param_dtype`` (exact for the reference's own parameters) on
+    ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.param_dtype]
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, dtype, dev)
+    return Transformer(cfg, params=conv(tree))
+
+
+def params_to_arrays(model: Transformer) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_arrays`: the parameter tree as numpy
+    arrays on the host; bfloat16 leaves come out as float32 (exact)."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy().copy()
+    return conv(model.tree())

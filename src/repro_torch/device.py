@@ -13,6 +13,12 @@ import torch
 
 F64 = torch.float64
 
+# dtypes by the names the reference's configs and checkpoints use
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32, "float64": torch.float64,
+          "int32": torch.int32, "int64": torch.int64}
+DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+
 DeviceLike = Union[None, str, torch.device]
 
 

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` (the concurrent retrieval server)."""
+"""Entry points of the port: ``serve`` (the concurrent retrieval server)
+and ``train`` (the training driver with progressive checkpoints)."""

@@ -1,0 +1,241 @@
+"""Common transformer layers: RMSNorm, RoPE, GQA attention, MLP.
+
+Counterpart of ``repro/models/layers.py`` for the dense family.  Parameters
+are plain dicts of tensors, as in the reference; every function takes them
+explicitly.  All math is explicitly dtyped as the reference's: params in
+``cfg.param_dtype``, activations in ``cfg.dtype``, normalisation and softmax
+accumulation in float32 — except the attention scores, which the
+reference's ``scores / np.sqrt(hd)`` promotes to float64 whenever jax's x64
+mode is on, as it is in the reference's own trainer (its checkpoint module
+imports the bitplane codec, which turns x64 on).  The port computes them as
+that trainer does.
+
+The reference's sharding hints (``dist.hint``, ``_attn_shard_mode``) are
+no-ops on one device (mode ``""``) and are left out until the multi-device
+slice; so are ``attention_decode``, ``attention_bidir`` and
+``cross_attention``.  Attention is plain torch ops, as the reference's is a
+jnp graph (no Pallas kernel): no ``scaled_dot_product_attention``, whose
+numerics are not the reference's.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DTYPES
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _pdt(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def _normal(gen: torch.Generator, shape, cfg: ModelConfig,
+            device: torch.device) -> Tensor:
+    """A standard normal draw in the param dtype, as
+    ``jax.random.normal(key, shape, param_dtype)``."""
+    return torch.randn(shape, generator=gen, dtype=_pdt(cfg), device=device)
+
+
+# ---------------------------------------------------------------- RMSNorm --
+
+def init_rmsnorm(d: int, cfg: ModelConfig, device: torch.device) -> Params:
+    return {"scale": torch.ones((d,), dtype=_pdt(cfg), device=device)}
+
+
+def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ------------------------------------------------------------------- RoPE --
+
+def rope_frequencies(cfg: ModelConfig,
+                     device: Optional[torch.device] = None) -> Tensor:
+    """(rot/2,) float32 inverse frequencies, computed in numpy exactly as
+    the reference does; ``partial_rotary`` rounds down to an even count."""
+    rot = int(cfg.hd * cfg.partial_rotary)
+    rot -= rot % 2
+    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, rot, 2, dtype=np.float32)
+                                    / rot))
+    return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
+
+
+def apply_rope(x: Tensor, positions: Tensor, inv_freq: Tensor) -> Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Angles in
+    float32; the rotated part is cast back to ``x.dtype`` and concatenated
+    with the pass-through part."""
+    rot2 = inv_freq.shape[0]
+    angles = positions[..., :, None].to(torch.float32) * inv_freq
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x_rot = x[..., : 2 * rot2]
+    x_pass = x[..., 2 * rot2:]
+    x1 = x_rot[..., 0::2]
+    x2 = x_rot[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([y.to(x.dtype), x_pass], dim=-1)
+
+
+# -------------------------------------------------------------- Attention --
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   device: torch.device) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = d ** -0.5
+    p = {"wq": _normal(gen, (d, h * hd), cfg, device) * s,
+         "wk": _normal(gen, (d, kv * hd), cfg, device) * s,
+         "wv": _normal(gen, (d, kv * hd), cfg, device) * s,
+         "wo": _normal(gen, (h * hd, d), cfg, device) * s}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=_pdt(cfg), device=device)
+        p["bk"] = torch.zeros((kv * hd,), dtype=_pdt(cfg), device=device)
+        p["bv"] = torch.zeros((kv * hd,), dtype=_pdt(cfg), device=device)
+    return p
+
+
+def _qkv(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
+         inv_freq: Tensor):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if inv_freq.shape[0]:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    return q, k, v
+
+
+def gqa_scores_mask(q_pos: Tensor, k_pos: Tensor, is_local: bool,
+                    window: int) -> Tensor:
+    """Causal mask, restricted to a sliding window when ``is_local`` (a
+    Python bool: the port's layer loop is unrolled)."""
+    causal = k_pos[None, :] <= q_pos[:, None]
+    if window > 0 and is_local:
+        return causal & (q_pos[:, None] - k_pos[None, :] < window)
+    return causal
+
+
+def gqa_attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores as
+    an einsum in the input dtype, then widened and divided by sqrt(hd) in
+    float64 (the reference trainer's promotion), masked with -1e30,
+    softmax, probs cast back to ``q.dtype``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    q = q.reshape(b, s, kv, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
+    scores = scores.to(torch.float64) / float(np.sqrt(hd))
+    if mask.dim() == 2:
+        mask_b = mask[None, None, None, :, :]
+    else:
+        mask_b = mask[:, None, None, :, :]
+    scores = torch.where(mask_b, scores, _NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+# the reference's float32 -1e30, widened with the scores
+_NEG = float(np.float32(-1e30))
+
+# query-chunked attention: score tensors are O(B·H·Qc·T) instead of
+# O(B·H·S·T) — the reference's choice at 4k+ training sequence lengths
+QUERY_CHUNK = 512
+
+
+def gqa_attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                       k_pos: Tensor, is_local: bool, window: int,
+                       chunk: int = QUERY_CHUNK) -> Tensor:
+    """``gqa_attend`` over query chunks of ``chunk`` rows (the reference's
+    ``lax.scan``, a Python loop here): queries are zero-padded to a whole
+    number of chunks at position 0, and the padded rows dropped."""
+    b, s, h, hd = q.shape
+    if s <= chunk:
+        return gqa_attend(q, k, v,
+                          gqa_scores_mask(q_pos, k_pos, is_local, window))
+    pad = (-s) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=0)
+    outs = []
+    for c in range((s + pad) // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        mask = gqa_scores_mask(q_pos[rows], k_pos, is_local, window)
+        outs.append(gqa_attend(q[:, rows], k, v, mask))
+    return torch.cat(outs, dim=1)[:, :s]
+
+
+def attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
+              inv_freq: Tensor, is_local: bool) -> Tensor:
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions, inv_freq)
+    pos1d = positions[0] if positions.dim() > 1 else positions
+    out = gqa_attend_chunked(q, k, v, pos1d, pos1d, is_local,
+                             cfg.local_window)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+# -------------------------------------------------------------------- MLP --
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
+             d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    s = d ** -0.5
+    if cfg.act == "swiglu":
+        return {"wg": _normal(gen, (d, f), cfg, device) * s,
+                "wu": _normal(gen, (d, f), cfg, device) * s,
+                "wd": _normal(gen, (f, d), cfg, device) * (f ** -0.5)}
+    return {"w1": _normal(gen, (d, f), cfg, device) * s,
+            "w2": _normal(gen, (f, d), cfg, device) * (f ** -0.5)}
+
+
+def mlp(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    if cfg.act == "swiglu":
+        g = F.silu(x @ p["wg"].to(x.dtype))
+        u = x @ p["wu"].to(x.dtype)
+        return (g * u) @ p["wd"].to(x.dtype)
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
+    return h @ p["w2"].to(x.dtype)
+
+
+# ------------------------------------------------------------- Embeddings --
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig,
+                   device: torch.device) -> Params:
+    return {"table": _normal(gen, (cfg.vocab, cfg.d_model), cfg, device)}
+
+
+def embed(p: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    return p["table"].to(_dt(cfg))[tokens]
+
+
+def unembed(p: Params, head: Optional[Tensor], cfg: ModelConfig,
+            x: Tensor) -> Tensor:
+    if cfg.tied_embeddings or head is None:
+        return x @ p["table"].to(x.dtype).T
+    return x @ head.to(x.dtype)
+

@@ -39,6 +39,12 @@ def test_every_module_imports_without_jax_repro_or_triton():
     assert "repro_torch.core.retrieval" in mods
     assert "repro_torch.compressors.szlike" in mods
     assert "repro_torch.compressors.snapshots" in mods
+    for m in ("models.config", "models.layers", "models.transformer",
+              "data.batches", "train.pytree", "train.optimizer",
+              "train.grad_compress", "train.train_step", "train.checkpoint",
+              "train.fault", "launch.train", "configs.internlm2_1_8b",
+              "configs.zamba2_2_7b"):
+        assert f"repro_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for m in ('jax', 'repro', 'triton'):\n"
             "    sys.modules[m] = None\n"
@@ -62,10 +68,15 @@ FORBIDDEN = re.compile(
                                        REPO / "chip_smoke.py",
                                        REPO / "examples" /
                                        "serve_retrieval_torch.py",
+                                       REPO / "examples" /
+                                       "train_lm_progressive_torch.py",
                                        REPO / "tools" / "time_bitplane.py",
                                        REPO / "tools" / "time_fma.py",
                                        REPO / "tools" / "time_thomas.py",
-                                       REPO / "tools" / "time_serve.py"]))
+                                       REPO / "tools" / "time_serve.py",
+                                       REPO / "tools" / "time_checkpoint.py",
+                                       REPO / "tools" /
+                                       "profile_train_step.py"]))
 def test_no_jax_or_repro_import_statement(path):
     src = (REPO / path).read_text()
     assert not FORBIDDEN.findall(src), path
@@ -102,6 +113,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.RetrievalServer(fields)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--n", "64", "--requests", "1"])
+    # the trainer and its pieces
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import checkpoint
+    from repro_torch.configs import get_reduced
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer(get_reduced("internlm2-1.8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.save_checkpoint("unused", {"w": torch.zeros(2)}, 0)
     # an explicit CPU request is honoured
     assert refactor_variables(fields, device="cpu").device.type == "cpu"
     server = serve.RetrievalServer(fields, device="cpu")

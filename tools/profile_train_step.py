@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Profile one training step of internlm2-1.8b at its full config on one
+card: where the step's device time goes, and how busy the card is.
+
+    python3 tools/profile_train_step.py             # batch 4 x seq 1024
+    python3 tools/profile_train_step.py --layers 2
+
+The step is ``launch/train.py``'s (eager autograd with remat, 8-plane
+gradient compression, clip, AdamW, parameters copied back), on a model
+drawn from a seed; two warm-up steps, then one under ``torch.profiler``
+(CPU and CUDA activity), ending in a synchronisation.  Printed: the step's
+wall seconds, the summed device time of its kernels and their share of the
+wall time (the card's busy share; one stream), the device time by kernel
+(matrix-product kernels summed as one row), and the card's nvidia-smi
+line.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+_MATMUL = ("gemm", "cutlass", "sm90_", "xmma", "nvjet")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth (0 = the config's 24)")
+    args = ap.parse_args(argv)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.data.batches import make_train_batch
+    from repro_torch.launch.train import _assign
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.grad_compress import compress_decompress, \
+        zeros_like_feedback
+    from repro_torch.train.optimizer import adamw_init, adamw_update, \
+        clip_by_global_norm
+    from repro_torch.train.train_step import value_and_grad
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train_step needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = configs.get("internlm2-1.8b")
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    dev = torch.device("cuda")
+    model = Transformer(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    state = {"opt": adamw_init(model.tree()),
+             "fb": zeros_like_feedback(model.tree())}
+
+    def step(s: int) -> float:
+        batch = make_train_batch(cfg, args.batch, args.seq, seed=s,
+                                 device=dev)
+        loss, _, grads = value_and_grad(cfg, model.tree(), batch)
+        grads, state["fb"] = compress_decompress(grads, state["fb"], 8)
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        new, state["opt"] = adamw_update(model.tree(), grads, state["opt"],
+                                         lr=3e-3)
+        _assign(model, new)
+        return float(loss)
+
+    for s in range(2):
+        step(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = step(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    print(f"[profile] internlm2-1.8b {cfg.n_layers} layers, batch "
+          f"{args.batch} x seq {args.seq}: loss {loss:.4f}; step wall "
+          f"{wall:.3f}s under the profiler, device kernels {busy:.3f}s "
+          f"({busy / wall:.0%} busy), {len(kernels)} device events ({smi})")
+    by = {}
+    for e in kernels:
+        name = "matrix products (cuBLAS/CUTLASS)" if any(
+            m in e.name.lower() for m in _MATMUL) else e.name
+        row = by.setdefault(name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"[profile] {ms:9.2f} ms {n:6d}x {name[:100]}")
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
