@@ -11,10 +11,10 @@ progressive checkpoints, restart from the latest one (``--resume``, params
 only: fresh optimizer moments and feedback, as in the reference), and
 deterministic synthetic data.  Runs on CUDA unless ``--device cpu``; the
 step is eager autograd.  Beyond the reference's flags: ``--device``,
-``--n-layers`` (a config cut to fewer layers at full width) and
-``--ckpt-workers``.  The checkpoints' bitplane encode and decode are
-the B1 and B2 CUDA kernels on the card; their host entropy stage runs on
-``--ckpt-workers`` processes (default: one per core, at most 8).
+and ``--n-layers`` (a config cut to fewer layers at full width).  The
+checkpoints' bitplane encode and decode are the B1 and B2 CUDA kernels on
+the card; their host entropy stage runs on a pool of processes once the
+model is large enough to repay it (``checkpoint.entropy_pool``).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.train.checkpoint import (
-    AsyncCheckpointer, RestoreReport, default_workers, entropy_pool,
+    AsyncCheckpointer, RestoreReport, entropy_pool,
     latest_step, restore_checkpoint,
 )
 from repro_torch.train.grad_compress import compress_decompress, \
@@ -85,9 +85,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the config's depth to this many layers "
                          "(0 = as configured; widths stay)")
-    ap.add_argument("--ckpt-workers", type=int, default=0,
-                    help="processes for the checkpoints' host entropy "
-                         "stage (0 = one per core, at most 8; 1 = none)")
     return ap
 
 
@@ -123,7 +120,7 @@ def train(argv=None, keep_snapshots: bool = False) -> TrainRun:
     fb = zeros_like_feedback(model.tree()) if args.grad_compress else None
     start_step = 0
 
-    pool = entropy_pool(args.ckpt_workers or default_workers()) \
+    pool = entropy_pool(sum(p.numel() for p in model.parameters())) \
         if args.progressive_ckpt else None
     ckpt = AsyncCheckpointer(args.progressive_ckpt, dev, pool) \
         if args.progressive_ckpt else None

@@ -28,9 +28,10 @@ planes and signs.  The protocol is the reference's: write
 
 The host entropy stage (per plane, pure Python and numpy under the
 interpreter lock) is what a save of a large model waits on.
-:func:`entropy_pool` makes a process pool that ``save_checkpoint``,
-``restore_checkpoint`` and :class:`AsyncCheckpointer` map it over; the
-blobs are the same with or without one.
+:func:`entropy_pool` makes a process pool for a tree large enough to
+repay it, and ``save_checkpoint``, ``restore_checkpoint`` and
+:class:`AsyncCheckpointer` map the stage over it when given one; the blobs
+are the same with or without it.
 """
 from __future__ import annotations
 
@@ -58,24 +59,32 @@ from repro_torch.train.pytree import flatten_with_paths, tree_from_paths, \
 Pytree = Any
 NBITS = 48
 FORMAT = "repro_torch.checkpoint/1"
-
-
-
-def entropy_pool(workers: int) -> Optional[Executor]:
-    """A pool of ``workers`` processes for the host entropy stage (spawned,
-    so no CUDA state is inherited), or None for ``workers <= 1``.  The
-    caller shuts it down.  Spawned workers import the main module, so a
-    script that makes one keeps its work under ``if __name__ ==
-    "__main__":``."""
-    if workers <= 1:
-        return None
-    return ProcessPoolExecutor(
-        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+# A tree of at least this many elements runs its host entropy stage on a
+# pool of processes.  In process the stage takes about 0.4 us per element
+# (76.72 s for a 189,530,112-element leaf, tools/time_checkpoint.py on the
+# H100 machine's host), so a smaller tree's stage lasts a few seconds,
+# against the pool's spawned workers, which each import numpy and the
+# codecs before their first task.
+POOL_MIN_ELEMENTS = 1 << 24
 
 
 def default_workers() -> int:
     """One entropy worker per core this process may run on, at most 8."""
     return min(8, len(os.sched_getaffinity(0)))
+
+
+def entropy_pool(n_elements: int) -> Optional[Executor]:
+    """A pool of :func:`default_workers` processes for the host entropy
+    stage of a tree of ``n_elements`` (spawned, so no CUDA state is
+    inherited), or None where the tree is below ``POOL_MIN_ELEMENTS`` or
+    the process has one core: the stage then runs in process.  The caller
+    shuts it down.  Spawned workers import the main module, so a script
+    that makes one keeps its work under ``if __name__ == "__main__":``."""
+    workers = default_workers()
+    if n_elements < POOL_MIN_ELEMENTS or workers <= 1:
+        return None
+    return ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """The port's dense model (``repro_torch.models``, ``repro_torch.configs``,
 ``repro_torch.convert``) against the JAX package on the same weights.
 
-Both packages see the same parameters (the reference's own init, carried
-across as numpy) and the same seeded batches.  JAX runs in x64 mode, as in
+Both packages see the same parameters (seeded numpy weights in the
+reference's tree, at its init's scales) and the same seeded batches.  JAX runs in x64 mode, as in
 the reference's trainer (its checkpoint module turns x64 on), where the
 attention scores are widened to float64; the port computes them so.
 
 Tolerances: logits and loss rtol 1e-5, atol 1e-5 (float32 products and
 reductions in another order, and XLA's own float32 ``exp``/``log``);
-gradients rtol 1e-4 with atol 1e-4 of the leaf's largest gradient (the
-backward sums in another order again).
+gradients rtol 1e-4 with atol ``GRAD_ATOL_FRAC`` = 1e-5 of the leaf's
+largest gradient, for its near-zero entries (the backward sums in another
+order again; the largest gap measured, over every leaf of the five cases,
+is 2.33e-6 of that leaf's largest gradient).
 """
 import dataclasses
 
@@ -40,22 +42,30 @@ OTHER = ("mamba2-780m", "llama4-maverick-400b-a17b", "olmoe-1b-7b",
          "zamba2-2.7b", "seamless-m4t-medium", "phi-3-vision-4.2b")
 RTOL = ATOL = 1e-5
 GRAD_RTOL = 1e-4
+GRAD_ATOL_FRAC = 1e-5
 
 
 def _ref_params(cfg, seed=0):
-    """The reference's init as numpy, with norm scales and biases moved off
-    their ones and zeros (seeded), so every parameter matters."""
-    params = jax.tree.map(np.asarray,
-                          RT.init_params(jax.random.PRNGKey(seed), cfg))
-    rng = np.random.default_rng(seed + 100)
+    """Seeded numpy weights in the reference's tree (its leaves, shapes and
+    dtypes, from ``jax.eval_shape`` of its init) at its init's scales:
+    normal, times ``shape[-2] ** -0.5`` but 1 for the embedding table.  Norm
+    scales and biases are moved off their ones and zeros, so every
+    parameter matters."""
+    shapes = jax.eval_shape(
+        lambda: RT.init_params(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(seed)
 
-    def jiggle(path, a):
+    def draw(path, s):
         name = jax.tree_util.keystr(path)
-        if "scale" in name or name.endswith("['bq']") or \
-                name.endswith("['bk']") or name.endswith("['bv']"):
-            return (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
-        return a
-    return jax.tree_util.tree_map_with_path(jiggle, params)
+        z = rng.standard_normal(s.shape)
+        if "scale" in name:
+            a = 1.0 + 0.1 * z
+        elif name.endswith(("['bq']", "['bk']", "['bv']")):
+            a = 0.1 * z
+        else:
+            a = z if "embed" in name else z * s.shape[-2] ** -0.5
+        return a.astype(s.dtype)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def _flat(tree):
@@ -118,7 +128,8 @@ def test_grads_match_jax_grad(runs, name, seq):
     for g, r in zip(grads, ref_grads):
         assert g.shape == r.shape
         np.testing.assert_allclose(
-            g, r, rtol=GRAD_RTOL, atol=GRAD_RTOL * float(np.abs(r).max()))
+            g, r, rtol=GRAD_RTOL,
+            atol=GRAD_ATOL_FRAC * float(np.abs(r).max()))
 
 
 def test_chunked_attention_runs_two_chunks_at_600():

@@ -7,7 +7,11 @@ seeded gradients and batches.  What each comparison holds:
 * ``compress_decompress``: codes, outputs and feedback bit for bit (the
   reference jit'd, as its trainer runs it), and the exponent edge cases
   with the known mismatches of fault C6;
-* ``clip_by_global_norm``: bit for bit;
+* ``clip_by_global_norm``: bit for bit on the fixture's draw; on other
+  draws within ``OPT_ULPS`` float32 ulps (each leaf's float32 sum of
+  squares runs in another order than XLA's: on 14 of 20 seeded draws the
+  norm is 1 or 2 ulps off, and the clipped leaves up to 2.65 ulps of the
+  leaf's largest magnitude);
 * AdamW and Adafactor over 3 steps: parameters and state within
   ``OPT_ULPS`` float32 ulps of each leaf's largest magnitude (the
   reference's step is one ``jax.jit``, where XLA contracts multiply-adds
@@ -20,8 +24,10 @@ seeded gradients and batches.  What each comparison holds:
 * the train step over 3 steps: losses within rtol 1e-5.
 """
 import math
+import multiprocessing
 import pickle
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -33,7 +39,6 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro._x64  # noqa: E402,F401  (the reference trainer's mode)
 from repro import configs as ref_configs  # noqa: E402
-from repro.bitplane import encoder as ref_encoder  # noqa: E402
 from repro.data.batches import make_train_batch as ref_batch  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro.train import checkpoint as RC  # noqa: E402
@@ -73,12 +78,31 @@ def _torch(tree):
     return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
+def _params(cfg, rng):
+    """Seeded numpy weights in the reference's tree (its leaves, shapes and
+    dtypes, from ``jax.eval_shape`` of its init) at its init's scales: ones
+    for norm scales, normal times ``shape[-2] ** -0.5`` but 1 for the
+    embedding table."""
+    shapes = jax.eval_shape(
+        lambda: RT.init_params(jax.random.PRNGKey(0), cfg))
+
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name:
+            return np.ones(s.shape, s.dtype)
+        z = rng.standard_normal(s.shape)
+        return (z if "embed" in name else z * s.shape[-2] ** -0.5
+                ).astype(s.dtype)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    """The reference's reduced internlm2 params (float32), three seeded
-    gradient trees at mixed scales, and a bfloat16 copy of the params."""
+    """Reduced internlm2 params (float32, seeded, in the reference's tree),
+    three seeded gradient trees at mixed scales, and a bfloat16 copy of the
+    params."""
     cfg = ref_configs.get_reduced(NAME)
-    params = _np(RT.init_params(jax.random.PRNGKey(0), cfg))
+    params = _params(cfg, np.random.default_rng(1))
     rng = np.random.default_rng(0)
     grads = [jax.tree.map(lambda a: (rng.standard_normal(a.shape)
                                      * 10.0 ** rng.integers(-4, 1)
@@ -122,6 +146,7 @@ def test_optimizer_three_steps_match_the_reference(setup, name):
 
 
 def test_clip_by_global_norm_is_bit_equal(setup):
+    """Bit for bit on this draw; not on every draw (see the next test)."""
     _, _, grads, _ = setup
     for max_norm in (1e-3, 1.0, 1e3):
         rc, rn = jax.jit(RO.clip_by_global_norm, static_argnums=1)(
@@ -135,6 +160,26 @@ def test_clip_by_global_norm_is_bit_equal(setup):
     norm = math.sqrt(sum(float((g.double() ** 2).sum())
                          for g in tree_leaves(tc)))
     assert norm <= 1e-3 * (1 + 1e-5)
+
+
+@pytest.mark.parametrize("seed", [10, 24, 28])
+def test_clip_by_global_norm_within_ulps_on_other_draws(setup, seed):
+    """Draws where the port's global norm is 1, 2 and 2 float32 ulps off
+    ``jax.jit``'s: the norm and the clipped leaves stay within
+    ``OPT_ULPS``."""
+    _, params, _, _ = setup
+    rng = np.random.default_rng(seed)
+    grads = jax.tree.map(lambda a: (rng.standard_normal(a.shape)
+                                    * 10.0 ** rng.integers(-4, 1)
+                                    ).astype(np.float32), params)
+    clip = jax.jit(RO.clip_by_global_norm, static_argnums=1)
+    for max_norm in (1e-3, 1.0, 1e3):
+        rc, rn = clip(jax.tree.map(jnp.asarray, grads), max_norm)
+        tc, tn = O.clip_by_global_norm(_torch(grads), max_norm)
+        assert abs(float(tn) - float(rn)) <= \
+            OPT_ULPS * float(np.spacing(np.float32(rn)))
+        for a, b in zip(tree_leaves(tc), jax.tree.leaves(rc)):
+            assert _scaled_ulps(a, b) <= OPT_ULPS
 
 
 # ---------------------------------------------------------- grad compress --
@@ -152,8 +197,12 @@ def test_compress_decompress_codes_outputs_and_feedback_exact(setup):
                             jax.tree.leaves(rc) + jax.tree.leaves(rfb)):
                 assert a.dtype == torch.float32
                 assert np.array_equal(a.numpy(), np.asarray(b))
-        for leaf in jax.tree.leaves(grads[0]):
-            rq, rs = RG._quantise(jnp.asarray(leaf), k)
+        codes = jax.jit(lambda t: jax.tree.map(
+            lambda x: RG._quantise(x, k), t))(
+                jax.tree.map(jnp.asarray, grads[0]))
+        for leaf, (rq, rs) in zip(jax.tree.leaves(grads[0]),
+                                  jax.tree.leaves(codes, is_leaf=lambda x:
+                                                  isinstance(x, tuple))):
             tq, ts = G._quantise(torch.from_numpy(leaf), k)
             assert tq.dtype == torch.int32 and float(ts) == float(rs)
             assert np.array_equal(tq.numpy(), np.asarray(rq))
@@ -300,16 +349,18 @@ def test_restored_tree_keeps_the_saved_structure(saved):
     assert [p for p, _ in flatten_with_paths(rebuilt)] == paths
 
 
-def test_plane_and_sign_nbytes_equal_the_reference():
-    rng = np.random.default_rng(7)
-    for x in (rng.standard_normal(5000),
-              np.where(rng.random(4097) < 0.01, rng.standard_normal(4097),
-                       0.0), np.linspace(-1.0, 1.0, 33)):
-        ref = ref_encoder.encode_level(x)
-        got = encoder.encode_level(torch.from_numpy(x))
-        assert [got.plane_nbytes(b) for b in range(got.nbits)] == \
-            [ref.plane_nbytes(b) for b in range(ref.nbits)]
-        assert got.sign_nbytes == ref.sign_nbytes
+def test_plane_and_sign_nbytes_equal_the_reference(saved):
+    """Over every leaf the three trees saved (dense, all-ones norm scales,
+    bfloat16, an int32 step): the port's ``LevelBitplanes`` counts the
+    reference's bytes per plane and for the signs."""
+    for rdir, pdir, _, _ in saved.values():
+        for pb, rb in zip(C.read_payload(pdir, 3)["blobs"],
+                          _ref_payload(rdir, 3)["blobs"]):
+            got, ref = C._group(pb), rb["lbp"]
+            assert isinstance(got, encoder.LevelBitplanes)
+            assert [got.plane_nbytes(b) for b in range(len(got.planes))] \
+                == [ref.plane_nbytes(b) for b in range(len(ref.planes))]
+            assert got.sign_nbytes == ref.sign_nbytes
 
 
 def test_latest_step_and_async_checkpointer(setup, tmp_path):
@@ -342,9 +393,20 @@ def test_latest_step_and_async_checkpointer(setup, tmp_path):
 
 
 def test_entropy_pool_gives_the_same_blobs(setup, tmp_path):
+    """The stage mapped over a pool of spawned processes writes and
+    restores what it does in process; the trainer's pool is made only for
+    a tree of at least ``POOL_MIN_ELEMENTS``."""
     _, params, _, _ = setup
     tree = _torch(params)
-    pool = C.entropy_pool(2)
+    assert C.entropy_pool(C.POOL_MIN_ELEMENTS - 1) is None
+    pool = C.entropy_pool(C.POOL_MIN_ELEMENTS)
+    if C.default_workers() > 1:
+        assert pool._max_workers == C.default_workers()
+        pool.shutdown()      # made, never used: no worker was started
+    else:
+        assert pool is None
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
         C.save_checkpoint(str(tmp_path / "pool"), tree, 0, device="cpu",
                           executor=pool)
@@ -360,7 +422,6 @@ def test_entropy_pool_gives_the_same_blobs(setup, tmp_path):
     assert rep_a == rep_b
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         assert torch.equal(x, y)
-    assert C.entropy_pool(1) is None
 
 
 # ------------------------------------------------------ train step, fault --
@@ -388,12 +449,11 @@ def test_train_step_three_steps_match_the_reference(setup):
 
 
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
-def test_optimizer_reduces_loss(opt):
+def test_optimizer_reduces_loss(setup, opt):
+    _, params, _, _ = setup
     cfg = configs.get_reduced(NAME).replace(optimizer=opt)
     init, step = make_train_step(cfg, lr=3e-3)
-    model = params_from_arrays(
-        _np(RT.init_params(jax.random.PRNGKey(0),
-                           ref_configs.get_reduced(NAME))), cfg, "cpu")
+    model = params_from_arrays(params, cfg, "cpu")
     batch = make_train_batch(cfg, 2, 16, device="cpu")
     p = model.tree()
     state = init(p)
@@ -464,7 +524,7 @@ def test_straggler_policy_skips_slow_shards():
 def test_cli_trains_checkpoints_and_resumes_on_the_cpu(tmp_path, capsys):
     ck = str(tmp_path / "ckpt")
     common = ["--device", "cpu", "--reduced", "--batch", "2", "--seq", "16",
-              "--progressive-ckpt", ck, "--ckpt-workers", "1",
+              "--progressive-ckpt", ck,
               "--log-every", "1"]
     run = launch_train.train(common + ["--steps", "5", "--ckpt-every", "2",
                                        "--grad-compress", "8"],

@@ -3,12 +3,14 @@
 card: the host entropy stage in process against a pool of processes.
 
     python3 tools/time_checkpoint.py               # internlm2's embed leaf
-    python3 tools/time_checkpoint.py --n 4194304 --workers 4
+    python3 tools/time_checkpoint.py --n 16777216
 
 The leaf is ``--n`` bfloat16 standard normal draws (seeded, on the card;
 189,530,112 = 92,544 x 2,048, internlm2-1.8b's embedding table, by
 default), widened to float64 as ``train/checkpoint.py`` does.  For the
-pool (``checkpoint.entropy_pool(--workers)``) and then in process, it times
+pool the trainer makes for a tree of ``--n`` elements
+(``checkpoint.entropy_pool``: ``--n`` must be at least its
+``POOL_MIN_ELEMENTS``) and then in process, it times
 ``encode_level`` (B1 on the card, the planes to the host, the entropy
 stage) and ``decode_prefix`` at all 48 planes and at the plane count a
 relative tau of 1e-4 needs (the planes inflate on the host, B2 decodes on
@@ -33,7 +35,6 @@ sys.path.insert(0, str(ROOT / "src"))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=92_544 * 2_048)
-    ap.add_argument("--workers", type=int, default=8)
     args = ap.parse_args(argv)
     import torch
     from repro_torch.bitplane import encoder as E
@@ -57,13 +58,17 @@ def main(argv=None) -> int:
         return out, time.perf_counter() - t0
 
     out, blobs = {}, {}
-    pool = C.entropy_pool(args.workers)
+    pool = C.entropy_pool(args.n)
+    if pool is None:
+        raise SystemExit(f"--n {args.n}: the trainer runs the entropy stage "
+                         f"of fewer than {C.POOL_MIN_ELEMENTS} elements (or "
+                         f"on one core) in process; there is no pool to time")
+    workers = C.default_workers()
     try:
         # start the workers (spawned, they import the codecs) before timing
-        if pool is not None:
-            warm = E.encode_level(x[: 1 << 20], executor=pool)
-            E.decode_prefix(warm, 48, dev, pool)
-        for label, ex in ((f"pool of {args.workers}", pool),
+        warm = E.encode_level(x[: 1 << 20], executor=pool)
+        E.decode_prefix(warm, 48, dev, pool)
+        for label, ex in ((f"pool of {workers}", pool),
                           ("in process", None)):
             lbp, enc_s = timed(lambda: E.encode_level(x, executor=ex))
             k = E.planes_needed(lbp, 1e-4 * 2.0 ** lbp.exponent)
@@ -81,14 +86,13 @@ def main(argv=None) -> int:
                   f"{part_s:.2f}s; {lbp.total_nbytes} B")
             del full
     finally:
-        if pool is not None:
-            pool.shutdown()
+        pool.shutdown()
     a, b = blobs.values()
     if a != b:
         raise AssertionError("the pool's blobs differ from the in-process "
                              "ones")
     print(smi)
-    result = {"n": args.n, "workers": args.workers, "device": smi, **out}
+    result = {"n": args.n, "workers": workers, "device": smi, **out}
     dump = ROOT / "build" / "time_checkpoint.json"
     dump.parent.mkdir(exist_ok=True)
     dump.write_text(json.dumps(result))
