@@ -6,9 +6,8 @@ counterpart of ``repro/configs/__init__.py``: one module per assigned arch
 (copies of the reference's, as data), each with its exact public config and
 a reduced smoke config (same family, tiny dims) for CPU tests.
 
-Usage: ``repro_torch.configs.get("qwen2.5-14b")`` / ``get_reduced(...)``.
-Every config can be read; building a model of a family other than dense
-raises ``NotImplementedError`` (``repro_torch.models.transformer``).
+Usage: ``repro_torch.configs.get("qwen2.5-14b")`` / ``get_reduced(...)``;
+every config builds and trains (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

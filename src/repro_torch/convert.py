@@ -30,9 +30,9 @@ Layout::
 ``pred_planes`` (the ip method's prediction depth) may be left out.
 
 :func:`params_from_arrays` and :func:`params_to_arrays` do the same for a
-dense model's parameter tree (nested dicts of numpy arrays, the JAX
-package's ``jax.tree.map(np.asarray, params)``), so both packages compute
-from the same weights.
+model's parameter tree, of any family (nested dicts of numpy arrays, the
+JAX package's ``jax.tree.map(np.asarray, params)``), so both packages
+compute from the same weights.
 """
 from __future__ import annotations
 
@@ -53,9 +53,9 @@ from repro_torch.core.refactor import (
     BitplaneVarArchive,
     SnapshotVarArchive,
 )
-from repro_torch.device import DTYPES, DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, leaf_dtype
 
 
 def _snapshot_var(v: Dict[str, Any]) -> SnapshotVarArchive:
@@ -170,21 +170,23 @@ def _tensor(a, dtype, device):
 def params_from_arrays(tree: Dict[str, Any], cfg: ModelConfig,
                        device: DeviceLike = None) -> Transformer:
     """A model whose parameters are ``tree``'s values, each leaf cast to
-    ``cfg.param_dtype`` (exact for the reference's own parameters) on
-    ``device`` (default CUDA)."""
+    its dtype in ``cfg``'s tree (``transformer.leaf_dtype``: float32 for
+    the router and the SSD's ``a_log``, ``dt_bias`` and ``d_skip``,
+    ``cfg.param_dtype`` otherwise; exact for the reference's own
+    parameters) on ``device`` (default CUDA)."""
     dev = resolve_device(device)
-    dtype = DTYPES[cfg.param_dtype]
 
-    def conv(node):
+    def conv(node, path):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, dtype, dev)
-    return Transformer(cfg, params=conv(tree))
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
+        return _tensor(node, leaf_dtype(cfg, path), dev)
+    return Transformer(cfg, params=conv(tree, ()))
 
 
 def params_to_arrays(model: Transformer) -> Dict[str, Any]:
     """Inverse of :func:`params_from_arrays`: the parameter tree as numpy
-    arrays on the host; bfloat16 leaves come out as float32 (exact)."""
+    arrays on the host; bfloat16 leaves come out as float32 (exact), and
+    :func:`params_from_arrays` casts them back by path."""
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}

@@ -1,2 +1,3 @@
-"""The model zoo's training path: configs (``config``), layers and the
-dense family's assembly (``layers``, ``transformer``)."""
+"""The model zoo's training path: the config (``config``), layers, the MoE
+and SSD blocks, and every family's assembly (``layers``, ``moe``, ``ssm``,
+``transformer``)."""

@@ -1,6 +1,6 @@
 """Common transformer layers: RMSNorm, RoPE, GQA attention, MLP.
 
-Counterpart of ``repro/models/layers.py`` for the dense family.  Parameters
+Counterpart of ``repro/models/layers.py``'s training path.  Parameters
 are plain dicts of tensors, as in the reference; every function takes them
 explicitly.  All math is explicitly dtyped as the reference's: params in
 ``cfg.param_dtype``, activations in ``cfg.dtype``, normalisation and softmax
@@ -12,8 +12,7 @@ that trainer does.
 
 The reference's sharding hints (``dist.hint``, ``_attn_shard_mode``) are
 no-ops on one device (mode ``""``) and are left out until the multi-device
-slice; so are ``attention_decode``, ``attention_bidir`` and
-``cross_attention``.  Attention is plain torch ops, as the reference's is a
+slice; ``attention_decode`` waits for the decode slice.  Attention is plain torch ops, as the reference's is a
 jnp graph (no Pallas kernel): no ``scaled_dot_product_attention``, whose
 numerics are not the reference's.
 """
@@ -195,6 +194,49 @@ def attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     pos1d = positions[0] if positions.dim() > 1 else positions
     out = gqa_attend_chunked(q, k, v, pos1d, pos1d, is_local,
                              cfg.local_window)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def _attend_full_mask_chunked(q: Tensor, k: Tensor, v: Tensor,
+                              chunk: int = 0) -> Tensor:
+    """Unmasked attention with query chunking (encoders, cross attention):
+    queries zero-padded to a whole number of chunks, the padded rows
+    dropped."""
+    b, s, h, hd = q.shape
+    chunk = chunk or QUERY_CHUNK
+    if s <= chunk:
+        return gqa_attend(q, k, v, torch.ones((s, k.shape[1]), dtype=torch.bool,
+                                              device=q.device))
+    pad = (-s) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    mask = torch.ones((chunk, k.shape[1]), dtype=torch.bool, device=q.device)
+    outs = [gqa_attend(q[:, c * chunk:(c + 1) * chunk], k, v, mask)
+            for c in range((s + pad) // chunk)]
+    return torch.cat(outs, dim=1)[:, :s]
+
+
+def attention_bidir(p: Params, cfg: ModelConfig, x: Tensor,
+                    positions: Tensor, inv_freq: Tensor) -> Tensor:
+    """Bidirectional (encoder) attention: no causal mask."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions, inv_freq)
+    out = _attend_full_mask_chunked(q, k, v)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
+                    positions: Tensor, enc_positions: Tensor,
+                    inv_freq: Tensor) -> Tensor:
+    """Decoder cross attention: queries from ``x``, keys and values from
+    ``enc_out``; no RoPE and no biases, as in the reference."""
+    b, s, _ = x.shape
+    t = enc_out.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (enc_out @ p["wk"].to(x.dtype)).reshape(b, t, kv, hd)
+    v = (enc_out @ p["wv"].to(x.dtype)).reshape(b, t, kv, hd)
+    out = _attend_full_mask_chunked(q, k, v)
     return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 

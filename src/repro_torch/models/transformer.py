@@ -1,23 +1,39 @@
-"""Model assembly, dense family: parameters, the training forward and loss.
+"""Model assembly for every family: parameters, the training forward and
+loss.
 
-Counterpart of ``repro/models/transformer.py`` for ``family="dense"``
-(gemma3, qwen2.5, internlm2, glm4): pre-norm GQA blocks, optional sliding
-window on local layers, tied or separate unembedding.  The other families
-(moe, ssm, hybrid, encdec, vlm) and the decode step come in later slices
-and raise ``NotImplementedError`` when a model is built or run.
+Counterpart of ``repro/models/transformer.py``'s training path for all six
+families:
+
+  dense   pre-norm GQA transformer (gemma3/qwen2.5/internlm2/glm4)
+  moe     dense attention + top-k MoE FFN (llama4-maverick, olmoe)
+  ssm     Mamba2 / SSD stack (mamba2-780m)
+  hybrid  Mamba2 backbone + a shared attention block every K layers (zamba2)
+  encdec  encoder-decoder with cross attention (seamless-m4t; audio frontend
+          stubbed as precomputed frame embeddings)
+  vlm     dense decoder with prepended patch embeddings (phi-3-vision; CLIP
+          frontend stubbed)
+
+The decode step (``init_decode_state``, ``decode_step``) waits for the
+decode slice.
 
 Parameters keep the reference's layer-stacked tree: one tensor per stacked
-leaf, ``(n_layers, ...)``, so a checkpoint's leaves, their order and their
-bytes are the reference's.  :class:`Transformer` holds them as one
-``nn.Parameter`` each, named by its path (``layers.attn.wq`` ...), and
-:func:`forward` / :func:`loss_fn` are plain functions on the tree.
+leaf, ``(n_layers, ...)`` (``(n_layers, E, D, F)`` for the experts), so a
+checkpoint's leaves, their order and their bytes are the reference's.
+:class:`Transformer` holds them as one ``nn.Parameter`` each, named by its
+path (``layers.attn.wq``, ``layers.moe.wg``, ``shared.fuse``,
+``encoder.layers.attn.wq`` ...), and :func:`forward` / :func:`loss_fn` are
+plain functions on the tree.  Leaves named in ``FLOAT32_LEAVES`` (the MoE
+router, the SSD's ``a_log``, ``dt_bias``, ``d_skip``) are float32 whatever
+``cfg.param_dtype``, as the reference's init makes them.
 
-The reference scans the stack (``lax.scan``, with ``jax.checkpoint`` when
+The reference scans each stack (``lax.scan``, with ``jax.checkpoint`` when
 ``cfg.remat``); here the loop is unrolled.  Each stacked parameter is
 unbound once per forward (the backward of ``unbind`` is one ``stack``;
 indexing per layer would allocate the whole stacked gradient once per
-layer), and ``cfg.remat`` wraps each block in
-``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``.
+layer), and ``cfg.remat`` wraps exactly the bodies the reference's
+``jax.checkpoint`` wraps (a layer of ``_stack``, of the encoder and of the
+cross-attention decoder) in ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``; the hybrid's shared block is not wrapped.
 """
 from __future__ import annotations
 
@@ -30,19 +46,23 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DTYPES, DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.pytree import flatten_with_paths, tree_map
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
+# leaves the reference's init makes float32 in any model (moe.py's router,
+# ssm.py's a_log, dt_bias, d_skip)
+FLOAT32_LEAVES = ("router", "a_log", "dt_bias", "d_skip")
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for a family this slice of the port does not build."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(A12, later slice); only 'dense' models run in repro_torch")
+
+def leaf_dtype(cfg: ModelConfig, path: Tuple[str, ...]) -> torch.dtype:
+    """The dtype of the parameter at ``path`` in ``cfg``'s tree."""
+    return torch.float32 if path[-1] in FLOAT32_LEAVES else \
+        DTYPES[cfg.param_dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -52,33 +72,83 @@ def require_dense(cfg: ModelConfig) -> None:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig,
                 device: torch.device) -> Params:
-    """One transformer block's params (unstacked)."""
+    """One block's params (unstacked): an SSD block for ssm and hybrid,
+    attention plus an MoE or MLP otherwise."""
+    p = {"norm1": L.init_rmsnorm(cfg.d_model, cfg, device),
+         "norm2": L.init_rmsnorm(cfg.d_model, cfg, device)}
+    if cfg.family in ("ssm", "hybrid"):
+        p["ssd"] = S.init_ssd(gen, cfg, device)
+        return p
+    p["attn"] = L.init_attention(gen, cfg, device)
+    if cfg.family == "moe":
+        p["moe"] = M.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def _stacked(blocks: List[Params]) -> Params:
+    return tree_map(lambda *xs: torch.stack(xs), *blocks)
+
+
+def _init_cross_block(gen: torch.Generator, cfg: ModelConfig,
+                      device: torch.device) -> Params:
     return {"norm1": L.init_rmsnorm(cfg.d_model, cfg, device),
             "norm2": L.init_rmsnorm(cfg.d_model, cfg, device),
+            "norm3": L.init_rmsnorm(cfg.d_model, cfg, device),
             "attn": L.init_attention(gen, cfg, device),
+            "cross": L.init_attention(gen, cfg, device),
             "mlp": L.init_mlp(gen, cfg, device)}
+
+
+def _square(gen: torch.Generator, cfg: ModelConfig, rows: int,
+            device: torch.device) -> Tensor:
+    """A (rows, d_model) projection at the reference's scale."""
+    return L._normal(gen, (rows, cfg.d_model), cfg, device) * rows ** -0.5
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """The reference's parameter tree with its distributions (normal times
-    the same scales, ones for norms, zeros for biases), drawn from
-    ``generator`` (default: seed 0 on ``device``).  The values are not the
-    reference's (jax's threefry is not reproduced): ``convert`` carries the
-    reference's values across."""
-    require_dense(cfg)
+    the same scales, ones for norms and ``d_skip``, zeros for biases, the
+    reference's ``a_log``), drawn from ``generator`` (default: seed 0 on
+    ``device``).  The random values are not the reference's (jax's
+    threefry is not reproduced): ``convert`` carries the reference's values
+    across."""
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
     params: Params = {"embed": L.init_embedding(gen, cfg, dev),
                       "final_norm": L.init_rmsnorm(cfg.d_model, cfg, dev)}
     if not cfg.tied_embeddings:
-        params["lm_head"] = torch.randn(
-            (cfg.d_model, cfg.vocab), generator=gen,
-            dtype=DTYPES[cfg.param_dtype],
-            device=dev) * cfg.d_model ** -0.5
-    blocks = [_init_block(gen, cfg, dev) for _ in range(cfg.n_layers)]
-    params["layers"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
+        params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab), cfg,
+                                      dev) * cfg.d_model ** -0.5
+    if cfg.family == "encdec":
+        enc = cfg.replace(family="dense")
+        params["encoder"] = {
+            "layers": _stacked([_init_block(gen, enc, dev)
+                                for _ in range(cfg.n_encoder_layers)]),
+            "final_norm": L.init_rmsnorm(cfg.d_model, cfg, dev)}
+        params["layers"] = _stacked([_init_cross_block(gen, cfg, dev)
+                                     for _ in range(cfg.n_layers)])
+        params["frame_proj"] = _square(gen, cfg, cfg.d_model, dev)
+        return params
+    params["layers"] = _stacked([_init_block(gen, cfg, dev)
+                                 for _ in range(cfg.n_layers)])
+    if cfg.family == "hybrid":
+        d = cfg.d_model
+        params["shared"] = {
+            "norm1": L.init_rmsnorm(d, cfg, dev),
+            "norm2": L.init_rmsnorm(d, cfg, dev),
+            "attn": L.init_attention(gen, cfg, dev),
+            "mlp": L.init_mlp(gen, cfg, dev),
+            # Zamba2: shared-block input = Linear(concat(h, embeddings))
+            "fuse": _square(gen, cfg, 2 * d, dev)}
+    if cfg.family == "vlm":
+        # projection of precomputed patch embeddings into d_model
+        params["patch_proj"] = _square(gen, cfg, cfg.d_model, dev)
+    if cfg.frontend == "frames":
+        params["frame_proj"] = _square(gen, cfg, cfg.d_model, dev)
     return params
 
 
@@ -107,14 +177,14 @@ class _Node(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A dense model: the parameter tree as ``nn.Parameter`` leaves named by
-    their paths, and ``forward(batch)`` / ``loss(batch)`` over it."""
+    """A model of any family: the parameter tree as ``nn.Parameter`` leaves
+    named by their paths, and ``forward(batch)`` / ``loss(batch)`` over
+    it."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Params] = None,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        require_dense(cfg)
         self.cfg = cfg
         self.params = _Node(params if params is not None
                             else init_params(cfg, generator, device))
@@ -157,16 +227,45 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, np.ndarray]:
             "shared_idx": np.cumsum(shared_here) - 1}
 
 
+def n_shared_applications(cfg: ModelConfig) -> int:
+    if cfg.shared_attn_period <= 0:
+        return 0
+    return cfg.n_layers // cfg.shared_attn_period
+
+
 # ---------------------------------------------------------------------------
 # Forward (train)
 # ---------------------------------------------------------------------------
 
 
+def _zero(device: torch.device) -> Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
 def _dense_block(bp: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                 inv_freq: Tensor, is_local: bool) -> Tensor:
+                 inv_freq: Tensor, is_local: bool) -> Tuple[Tensor, Tensor]:
+    """A pre-norm attention block with an MLP, or with an MoE whose aux loss
+    it returns (0 otherwise)."""
     h = x + L.attention(bp["attn"], cfg, L.rmsnorm(bp["norm1"], x),
                         positions, inv_freq, is_local)
-    return h + L.mlp(bp["mlp"], cfg, L.rmsnorm(bp["norm2"], h))
+    if cfg.family == "moe":
+        y, aux = M.moe_block(bp["moe"], cfg, L.rmsnorm(bp["norm2"], h),
+                             dispatch=cfg.moe_dispatch)
+        return h + y, aux
+    return (h + L.mlp(bp["mlp"], cfg, L.rmsnorm(bp["norm2"], h)),
+            _zero(x.device))
+
+
+def _ssm_block(bp: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    return x + S.ssd_block(bp["ssd"], cfg, L.rmsnorm(bp["norm1"], x))
+
+
+def _shared_attn(sp: Params, cfg: ModelConfig, x: Tensor, x0: Tensor,
+                 positions: Tensor, inv_freq: Tensor) -> Tensor:
+    fused = torch.cat([x, x0], dim=-1) @ sp["fuse"].to(x.dtype)
+    h = fused + L.attention(sp["attn"], cfg, L.rmsnorm(sp["norm1"], fused),
+                            positions, inv_freq, False)
+    return x + h + L.mlp(sp["mlp"], cfg, L.rmsnorm(sp["norm2"], h))
 
 
 def _unbind_layers(tree: Params, n: int) -> List[Params]:
@@ -179,33 +278,109 @@ def _unbind_layers(tree: Params, n: int) -> List[Params]:
     return out
 
 
+def _run(cfg: ModelConfig, body, *args):
+    """``body(*args)``, under activation checkpointing when ``cfg.remat``
+    (the reference's ``jax.checkpoint`` of a scan body)."""
+    if cfg.remat:
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
 def _stack(cfg: ModelConfig, params: Params, x: Tensor,
            positions: Tensor) -> Tuple[Tensor, Tensor]:
-    """Run the layer stack. Returns (hidden, aux_loss_sum); the dense
-    family's aux loss is 0."""
-    require_dense(cfg)
+    """Run the layer stack. Returns (hidden, aux_loss_sum).  The hybrid
+    runs ``shared_attn_period`` Mamba2 layers, then the shared block, per
+    group, and the layers left over (``n_layers % period``) last."""
     inv_freq = L.rope_frequencies(cfg, x.device)
     is_local = layer_flags(cfg)["is_local"]
+    blocks = _unbind_layers(params["layers"], cfg.n_layers)
+    aux = _zero(x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h, x0 = x, x
+        period = cfg.shared_attn_period
+        for i, bp in enumerate(blocks):
+            h = _run(cfg, _ssm_block, bp, cfg, h)
+            if cfg.family == "hybrid" and (i + 1) % period == 0:
+                h = _shared_attn(params["shared"], cfg, h, x0, positions,
+                                 inv_freq)
+        return h, aux
     h = x
-    for i, bp in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-        args = (bp, cfg, h, positions, inv_freq, bool(is_local[i]))
-        if cfg.remat:
-            h = checkpoint(_dense_block, *args, use_reentrant=False)
-        else:
-            h = _dense_block(*args)
-    return h, torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, bp in enumerate(blocks):
+        h, a = _run(cfg, _dense_block, bp, cfg, h, positions, inv_freq,
+                    bool(is_local[i]))
+        aux = aux + a
+    return h, aux
+
+
+def _encoder_stack(cfg: ModelConfig, params: Params, frames: Tensor
+                   ) -> Tensor:
+    """Bidirectional encoder over precomputed frame embeddings (stub
+    frontend): frames (B, T, D)."""
+    enc_cfg = cfg.replace(family="dense")
+    x = frames @ params["frame_proj"].to(frames.dtype)
+    b, t, _ = x.shape
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=x.device).expand(b, t)
+    inv_freq = L.rope_frequencies(enc_cfg, x.device)
+
+    def body(bp, h):
+        hh = h + L.attention_bidir(bp["attn"], enc_cfg,
+                                   L.rmsnorm(bp["norm1"], h), positions,
+                                   inv_freq)
+        return hh + L.mlp(bp["mlp"], enc_cfg, L.rmsnorm(bp["norm2"], hh))
+
+    h = x
+    for bp in _unbind_layers(params["encoder"]["layers"],
+                             cfg.n_encoder_layers):
+        h = _run(cfg, body, bp, h)
+    return L.rmsnorm(params["encoder"]["final_norm"], h)
+
+
+def _decoder_stack_cross(cfg: ModelConfig, params: Params, x: Tensor,
+                         enc_out: Tensor, positions: Tensor) -> Tensor:
+    inv_freq = L.rope_frequencies(cfg, x.device)
+    b, t_enc = enc_out.shape[0], enc_out.shape[1]
+    enc_pos = torch.arange(t_enc, dtype=torch.int32,
+                           device=x.device).expand(b, t_enc)
+
+    def body(bp, h, enc_out):
+        hh = h + L.attention(bp["attn"], cfg, L.rmsnorm(bp["norm1"], h),
+                             positions, inv_freq, False)
+        hh = hh + L.cross_attention(bp["cross"], cfg,
+                                    L.rmsnorm(bp["norm2"], hh), enc_out,
+                                    positions, enc_pos, inv_freq)
+        return hh + L.mlp(bp["mlp"], cfg, L.rmsnorm(bp["norm3"], hh))
+
+    h = x
+    for bp in _unbind_layers(params["layers"], cfg.n_layers):
+        h = _run(cfg, body, bp, h, enc_out)
+    return h
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
-    """-> (logits (B,S,V), aux_loss)."""
-    require_dense(cfg)
+    """-> (logits (B,S,V) over the *text* positions, aux_loss)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = L.embed(params["embed"], cfg, tokens)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
-    h, aux = _stack(cfg, params, x, positions)
+    aux = _zero(tokens.device)
+    if cfg.family == "encdec":
+        enc_out = _encoder_stack(cfg, params, batch["frames"])
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+        h = _decoder_stack_cross(cfg, params, x, enc_out, positions)
+    elif cfg.family == "vlm":
+        patches = batch["patches"] @ params["patch_proj"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        st = x.shape[1]
+        positions = torch.arange(st, dtype=torch.int32,
+                                 device=tokens.device).expand(b, st)
+        h, aux = _stack(cfg, params, x, positions)
+        h = h[:, patches.shape[1]:, :]   # logits over text positions only
+    else:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+        h, aux = _stack(cfg, params, x, positions)
     h = L.rmsnorm(params["final_norm"], h)
     logits = L.unembed(params["embed"], params.get("lm_head"), cfg, h)
     return logits, aux
@@ -214,9 +389,10 @@ def forward(params: Params, cfg: ModelConfig,
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Mean next-token cross entropy over positions with a label >= 0 (the
-    last position's label is -1).  ``torch.gather`` refuses -1, where the
-    reference's ``take_along_axis`` wraps it: the index is clamped to 0 and
-    the mask zeroes the term either way."""
+    last position's label is -1), plus 0.01 of the MoE aux loss.
+    ``torch.gather`` refuses -1, where the reference's ``take_along_axis``
+    wraps it: the index is clamped to 0 and the mask zeroes the term either
+    way."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"]
     logits = logits.to(torch.float32)

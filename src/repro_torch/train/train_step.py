@@ -34,7 +34,10 @@ def value_and_grad(cfg: ModelConfig, params: Pytree,
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     tree = tree_unflatten_like(params, leaves)
     loss, metrics = T.loss_fn(tree, cfg, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not read (an SSD block's norm2) gets zeros, as
+    # under jax.grad
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten_like(params, list(grads)))
 

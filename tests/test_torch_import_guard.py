@@ -40,6 +40,7 @@ def test_every_module_imports_without_jax_repro_or_triton():
     assert "repro_torch.compressors.szlike" in mods
     assert "repro_torch.compressors.snapshots" in mods
     for m in ("models.config", "models.layers", "models.transformer",
+              "models.moe", "models.ssm",
               "data.batches", "train.pytree", "train.optimizer",
               "train.grad_compress", "train.train_step", "train.checkpoint",
               "train.fault", "launch.train", "configs.internlm2_1_8b",

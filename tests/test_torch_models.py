@@ -1,5 +1,6 @@
-"""The port's dense model (``repro_torch.models``, ``repro_torch.configs``,
-``repro_torch.convert``) against the JAX package on the same weights.
+"""The port's models, every family (``repro_torch.models``,
+``repro_torch.configs``, ``repro_torch.convert``), against the JAX package
+on the same weights.
 
 Both packages see the same parameters (seeded numpy weights in the
 reference's tree, at its init's scales) and the same seeded batches.  JAX runs in x64 mode, as in
@@ -7,11 +8,18 @@ the reference's trainer (its checkpoint module turns x64 on), where the
 attention scores are widened to float64; the port computes them so.
 
 Tolerances: logits and loss rtol 1e-5, atol 1e-5 (float32 products and
-reductions in another order, and XLA's own float32 ``exp``/``log``);
+reductions in another order, and XLA's own float32 ``exp``/``log``); the
+other families' logits atol ``FAMILY_ATOL_FRAC`` = 1e-5 of the largest
+logit (their logits reach ~10 with the SSD's recurrence amplifying
+last-bit differences; measured worst 3.0e-6 of the largest, zamba2);
 gradients rtol 1e-4 with atol ``GRAD_ATOL_FRAC`` = 1e-5 of the leaf's
 largest gradient, for its near-zero entries (the backward sums in another
-order again; the largest gap measured, over every leaf of the five cases,
-is 2.33e-6 of that leaf's largest gradient).
+order again; the largest gap measured, over every leaf of the dense
+cases, is 2.33e-6 of that leaf's largest gradient).  The other families'
+gradients take ``FAMILY_GRAD_ATOL_FRAC`` (their largest gap measured is
+2.6e-5 of the leaf's largest gradient, in zamba2's SSD blocks, where
+XLA's float32 ``exp`` and ``log1p`` and the chunk cumsum differ from
+torch's in the last bit and the decays amplify it).
 """
 import dataclasses
 
@@ -43,6 +51,8 @@ OTHER = ("mamba2-780m", "llama4-maverick-400b-a17b", "olmoe-1b-7b",
 RTOL = ATOL = 1e-5
 GRAD_RTOL = 1e-4
 GRAD_ATOL_FRAC = 1e-5
+FAMILY_GRAD_ATOL_FRAC = 1e-4
+FAMILY_ATOL_FRAC = 1e-5
 
 
 def _ref_params(cfg, seed=0):
@@ -94,7 +104,12 @@ def _port_loss_and_grads(cfg, params, batch):
             [g.numpy() for g in tree_leaves(grads)])
 
 
-CASES = [(name, 32) for name in DENSE] + [("internlm2-1.8b", 600)]
+# seq 600 pads the queries to two chunks of 512: causal (internlm2), the
+# encoder's and the cross attention's unmasked (seamless), and the vlm's 8
+# patches + 600 tokens
+CASES = [(name, 32) for name in DENSE + OTHER] + [
+    ("internlm2-1.8b", 600), ("seamless-m4t-medium", 600),
+    ("phi-3-vision-4.2b", 600)]
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +132,9 @@ def test_forward_and_loss_match_the_reference(runs, name, seq):
     assert logits.shape == ref_logits.shape == (2, seq,
                                                  ref_configs.get_reduced(
                                                      name).vocab)
-    np.testing.assert_allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
+    atol = ATOL if name in DENSE else \
+        FAMILY_ATOL_FRAC * float(np.abs(ref_logits).max())
+    np.testing.assert_allclose(logits, ref_logits, rtol=RTOL, atol=atol)
     np.testing.assert_allclose(loss, ref_loss, rtol=RTOL, atol=ATOL)
 
 
@@ -125,11 +142,11 @@ def test_forward_and_loss_match_the_reference(runs, name, seq):
 def test_grads_match_jax_grad(runs, name, seq):
     (_, _, ref_grads), (_, _, grads) = runs[name, seq]
     assert len(grads) == len(ref_grads)
+    frac = GRAD_ATOL_FRAC if name in DENSE else FAMILY_GRAD_ATOL_FRAC
     for g, r in zip(grads, ref_grads):
         assert g.shape == r.shape
         np.testing.assert_allclose(
-            g, r, rtol=GRAD_RTOL,
-            atol=GRAD_ATOL_FRAC * float(np.abs(r).max()))
+            g, r, rtol=GRAD_RTOL, atol=frac * float(np.abs(r).max()))
 
 
 def test_chunked_attention_runs_two_chunks_at_600():
@@ -226,16 +243,39 @@ def test_remat_gives_the_same_grads():
         assert torch.equal(a, b)
 
 
+# leaves the reference's init sets without its random key: norm scales,
+# biases, the SSD's conv bias, a_log, dt_bias and d_skip
+DETERMINISTIC = ("scale", "bq", "bk", "bv", "conv_b", "a_log", "dt_bias",
+                 "d_skip")
+
+
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise_naming_a12(name):
-    cfg = configs.get_reduced(name)       # the config reads
-    assert cfg.family != "dense"
-    with pytest.raises(NotImplementedError, match="A12, later slice"):
-        T.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12, later slice"):
-        T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12, later slice"):
-        T.forward({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
+    """These families raised ``NotImplementedError`` naming A12's later
+    slice; each now builds.  The port's init gives the reference's tree:
+    the same paths in the same leaf order, shapes and dtypes (float32
+    router and SSD leaves in a bfloat16 model), and the leaves the
+    reference sets without its key equal bit for bit."""
+    for cfg, rcfg in ((configs.get_reduced(name),
+                       ref_configs.get_reduced(name)),
+                      (configs.get_reduced(name).replace(
+                          dtype="bfloat16", param_dtype="bfloat16"),
+                       ref_configs.get_reduced(name).replace(
+                           dtype="bfloat16", param_dtype="bfloat16"))):
+        model = T.Transformer(cfg, generator=torch.Generator().manual_seed(3),
+                              device="cpu")
+        ref = jax.tree_util.tree_flatten_with_path(
+            RT.init_params(jax.random.PRNGKey(0), rcfg))[0]
+        got = list(model.leaves())
+        assert [n for n, _ in got] == [
+            ".".join(str(k.key) for k in path) for path, _ in ref]
+        for (path, r), (n, p) in zip(ref, got):
+            r = np.asarray(r)
+            assert tuple(p.shape) == r.shape, n
+            assert str(p.dtype).replace("torch.", "") == r.dtype.name, n
+            if n.split(".")[-1] in DETERMINISTIC:
+                assert np.array_equal(p.detach().float().numpy(),
+                                      r.astype(np.float32)), n
 
 
 def test_registry_equals_the_reference():

@@ -5,8 +5,10 @@ Same parameters (the reference's init, carried across as numpy), same
 seeded gradients and batches.  What each comparison holds:
 
 * ``compress_decompress``: codes, outputs and feedback bit for bit (the
-  reference jit'd, as its trainer runs it), and the exponent edge cases
-  with the known mismatches of fault C6;
+  reference jit'd, as its trainer runs it); the exponent and scale
+  tables that close fault C6 regenerated from the reference, and codes,
+  scale and feedback bit for bit over every amax within 96 ulps of each
+  power of two;
 * ``clip_by_global_norm``: bit for bit on the fixture's draw; on other
   draws within ``OPT_ULPS`` float32 ulps (each leaf's float32 sum of
   squares runs in another order than XLA's: on 14 of 20 seeded draws the
@@ -63,11 +65,19 @@ from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 NAME = "internlm2-1.8b"
 OPT_ULPS = 4.0
-# fault C6: amax within one ulp of 2^k (k in [-99, 127]) where the
-# reference's scale is not the port's: XLA's float32 log puts
-# ceil(log(x)/log(2)) one off torch's (all but k = 32), and its exp(ln2*e)
-# one ulp off torch's at e = 32
-C6_EXPONENTS = (-62, -54, -31, -27, 32, 47, 55, 63, 94, 99, 110, 115, 126)
+# fault C6 (fixed): the reference's exponent and scale, tabled by the port,
+# from e = -99 (the clamp at 1e-30) to 128 (inf), checked over every amax
+# within C6_BAND_ULPS ulps of each 2^k
+C6_E_MIN, C6_E_MAX = -99, 128
+C6_BAND_ULPS = 96
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A numpy leaf (bfloat16 ones included) as a tensor of its dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def _np(tree):
@@ -210,8 +220,9 @@ def test_compress_decompress_codes_outputs_and_feedback_exact(setup):
 
 def test_quantise_exponent_at_powers_of_two_and_c6():
     """amax exactly at, and one ulp either side of, 2^k for every k the
-    clamp lets through: codes and scale equal the reference's, except at
-    fault C6's exponents (all three sides there)."""
+    clamp lets through: codes and scale equal the reference's.  Fault C6
+    (torch's float32 log and exp against XLA's) left 13 exponents here
+    where they did not; the tables close it, so the set is empty."""
     ref = jax.jit(RG._quantise, static_argnums=1)
     mismatched = set()
     for k in range(-99, 128):
@@ -226,8 +237,83 @@ def test_quantise_exponent_at_powers_of_two_and_c6():
             if float(ts) != float(rs) or \
                     not np.array_equal(tq.numpy(), np.asarray(rq)):
                 mismatched.add((k, side))
-    assert mismatched == {(k, s) for k in C6_EXPONENTS for s in (-1, 0, 1)
-                          if k != 127 or s != 1}
+    assert mismatched == set()
+
+
+def _ref_scalar_quantise():
+    """The reference's ``_quantise`` as its train step runs it: jitted, on
+    one leaf whose amax is a 0-d value inside the step."""
+    ref = jax.jit(RG._quantise, static_argnums=1)
+    return lambda a: ref(jnp.asarray(np.array([a], np.float32)), 8)
+
+
+def _bits_of(x) -> int:
+    return int(np.float32(x).view(np.int32)) & 0xFFFFFFFF
+
+
+def test_quantise_tables_equal_the_reference():
+    """Regenerate ``_SCALE_BITS`` (the scale of an amax inside each
+    exponent's band, 0 for e = -99 and float32's max for e = 128) and
+    ``_E_EDGE_BITS`` (bisection over bit patterns within 4096 ulps of
+    2^k for the largest amax whose scale is still e's) from scalar calls
+    of the jitted reference, and hold the port's literals to them."""
+    quant = _ref_scalar_quantise()
+    scale_of = {}
+    for e in range(C6_E_MIN, C6_E_MAX + 1):
+        a = np.float32(0.0) if e == C6_E_MIN else \
+            np.finfo(np.float32).max if e == C6_E_MAX else \
+            np.float32(0.75) * np.float32(2.0) ** e
+        scale_of[e] = _bits_of(quant(a)[1])
+    assert [scale_of[e] for e in sorted(scale_of)] == list(G._SCALE_BITS)
+    exponent = {b: e for e, b in scale_of.items()}
+    assert len(exponent) == len(scale_of)        # one scale per exponent
+
+    def e_at(bits: int) -> int:
+        return exponent[_bits_of(quant(np.int32(bits).view(np.float32))[1])]
+
+    edges = []
+    for k in range(C6_E_MIN, C6_E_MAX):
+        lo = _bits_of(np.float32(2.0) ** k) - 4096
+        hi = lo + 8192
+        assert e_at(lo) <= k < e_at(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if e_at(mid) <= k else (lo, mid)
+        edges.append(lo)
+    assert edges == list(G._E_EDGE_BITS)
+
+
+def _band(k: int, ulps: int = C6_BAND_ULPS) -> np.ndarray:
+    """Every finite float32 within ``ulps`` ulps of 2^k."""
+    b = _bits_of(np.float32(2.0) ** k)
+    a = np.arange(b - ulps, b + ulps + 1).astype(np.int32).view(np.float32)
+    return a[np.isfinite(a)]
+
+
+def test_quantise_codes_scale_and_feedback_bit_equal_over_the_bands():
+    """Every amax within 96 ulps of 2^k, k in [-99, 127] (43,811 values):
+    the port's codes, scale, compressed output and feedback bit-equal to
+    scalar calls of the jitted reference."""
+    def ref_fn(g):
+        comp, fb = RG.compress_decompress(g, jnp.zeros_like(g), 8)
+        return RG._quantise(g, 8), comp, fb
+    ref = jax.jit(ref_fn)
+    n = 0
+    for k in range(C6_E_MIN, C6_E_MAX):
+        for a in _band(k):
+            g = np.array([a, -a / 3, a / 7, 0.0], np.float32)
+            (rq, rs), rc, rfb = ref(jnp.asarray(g))
+            tg = torch.from_numpy(g)
+            tq, ts = G._quantise(tg, 8)
+            tc, tfb = G.compress_decompress(tg, torch.zeros(4), 8)
+            assert _bits_of(float(ts)) == _bits_of(rs), (k, a)
+            assert np.array_equal(tq.numpy(), np.asarray(rq)), (k, a)
+            assert np.array_equal(tc.numpy().view(np.int32),
+                                  np.asarray(rc).view(np.int32)), (k, a)
+            assert np.array_equal(tfb.numpy().view(np.int32),
+                                  np.asarray(rfb).view(np.int32)), (k, a)
+            n += 1
+    assert n == 43_811
 
 
 def test_payload_bytes_and_wire_dtype():
@@ -253,8 +339,10 @@ def _state_tree(params):
 
 @pytest.fixture(scope="module")
 def saved(setup, tmp_path_factory):
-    """The same trees saved by both packages: f32 params, bf16 params, and
-    params + AdamW state after one step."""
+    """The same trees saved by both packages: f32 params, bf16 params,
+    params + AdamW state after one step, and the reduced mamba2 and olmoe
+    trees in bfloat16, whose SSD leaves and router stay float32 and whose
+    experts are rank-4 ``(L, E, D, F)`` leaves."""
     _, params, grads, bf16 = setup
     rstate_p = jax.tree.map(jnp.asarray, params)
     rs = RO.adamw_init(rstate_p)
@@ -269,6 +357,11 @@ def saved(setup, tmp_path_factory):
                        (_torch(_np(rstate_p)), O.OptState(
                            torch.tensor(int(rs.step), dtype=torch.int32),
                            _torch(_np(rs.inner)))))}
+    for name, arch in (("ssm", "mamba2-780m"), ("moe", "olmoe-1b-7b")):
+        cfg = ref_configs.get_reduced(arch).replace(dtype="bfloat16",
+                                                    param_dtype="bfloat16")
+        tree = _params(cfg, np.random.default_rng(7))
+        trees[name] = (tree, jax.tree.map(_leaf_tensor, tree))
     out = {}
     for name, (ref_tree, port_tree) in trees.items():
         rdir = tmp_path_factory.mktemp(f"ref_{name}")
@@ -279,7 +372,10 @@ def saved(setup, tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", ["f32", "bf16", "state"])
+SAVED = ["f32", "bf16", "state", "ssm", "moe"]
+
+
+@pytest.mark.parametrize("name", SAVED)
 def test_checkpoint_blobs_byte_identical(saved, name):
     rdir, pdir, tree, info = saved[name]
     ref = _ref_payload(rdir, 3)
@@ -302,9 +398,16 @@ def test_checkpoint_blobs_byte_identical(saved, name):
     assert b"repro" not in raw.replace(C.FORMAT.encode(), b"")
     if name == "state":
         assert [b["dtype"] for b in port["blobs"]].count("int32") == 1
+    dtypes = {b["path"][-1]: b["dtype"] for b in port["blobs"]}
+    if name == "ssm":
+        assert all(dtypes[k] == "float32"
+                   for k in ("a_log", "dt_bias", "d_skip"))
+    if name == "moe":
+        assert dtypes["router"] == "float32" and dtypes["wg"] == "bfloat16"
+        assert max(len(b["shape"]) for b in port["blobs"]) == 4
 
 
-@pytest.mark.parametrize("name", ["f32", "bf16", "state"])
+@pytest.mark.parametrize("name", SAVED)
 @pytest.mark.parametrize("tau", [0.0, 1e-4, 1e-2])
 def test_restore_bit_equal_to_the_reference(saved, name, tau):
     rdir, pdir, tree, _ = saved[name]
