@@ -32,7 +32,10 @@ Layout::
 :func:`params_from_arrays` and :func:`params_to_arrays` do the same for a
 model's parameter tree, of any family (nested dicts of numpy arrays, the
 JAX package's ``jax.tree.map(np.asarray, params)``), so both packages
-compute from the same weights.
+compute from the same weights; :func:`decode_state_from_arrays` and
+:func:`decode_state_to_arrays` carry a decode state across (a dict of numpy
+arrays with ``init_decode_state``'s keys), for example encdec's ``enc_out``
+or a state part-way through a sequence.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ from repro_torch.core.refactor import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer, leaf_dtype
+from repro_torch.models.transformer import Transformer, \
+    init_decode_state, leaf_dtype
 
 
 def _snapshot_var(v: Dict[str, Any]) -> SnapshotVarArchive:
@@ -195,3 +199,31 @@ def params_to_arrays(model: Transformer) -> Dict[str, Any]:
             t = t.to(torch.float32)
         return t.numpy().copy()
     return conv(model.tree())
+
+
+def decode_state_from_arrays(tree: Dict[str, Any], cfg: ModelConfig,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """A decode state of ``cfg``'s family from numpy arrays (the JAX
+    package's ``jax.tree.map(np.asarray, state)``, or
+    :func:`decode_state_to_arrays`), each leaf cast to its dtype in
+    ``init_decode_state(cfg, ...)`` (exact for such a state), on ``device``
+    (default CUDA).  Raises if the keys are not that layout's."""
+    dev = resolve_device(device)
+    layout = init_decode_state(cfg, 0, 0, device="cpu")
+    if set(tree) != set(layout):
+        raise ValueError(f"decode state keys {sorted(tree)}, expected "
+                         f"{sorted(layout)} for family {cfg.family!r}")
+    return {k: _tensor(tree[k], t.dtype, dev) for k, t in layout.items()}
+
+
+def decode_state_to_arrays(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`decode_state_from_arrays`: numpy arrays on the
+    host; bfloat16 leaves come out as float32 (exact), which
+    :func:`decode_state_from_arrays` casts back."""
+    out = {}
+    for k, t in state.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        out[k] = t.numpy().copy()
+    return out

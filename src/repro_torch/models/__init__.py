@@ -1,3 +1,3 @@
-"""The model zoo's training path: the config (``config``), layers, the MoE
-and SSD blocks, and every family's assembly (``layers``, ``moe``, ``ssm``,
-``transformer``)."""
+"""The model zoo: the config (``config``), layers, the MoE and SSD blocks,
+and every family's assembly (``layers``, ``moe``, ``ssm``,
+``transformer``), for training and for token-by-token decode."""

@@ -1,6 +1,7 @@
-"""Common transformer layers: RMSNorm, RoPE, GQA attention, MLP.
+"""Common transformer layers: RMSNorm, RoPE, GQA attention, MLP, and the
+single-token decode attention over a KV cache.
 
-Counterpart of ``repro/models/layers.py``'s training path.  Parameters
+Counterpart of ``repro/models/layers.py``.  Parameters
 are plain dicts of tensors, as in the reference; every function takes them
 explicitly.  All math is explicitly dtyped as the reference's: params in
 ``cfg.param_dtype``, activations in ``cfg.dtype``, normalisation and softmax
@@ -12,13 +13,22 @@ that trainer does.
 
 The reference's sharding hints (``dist.hint``, ``_attn_shard_mode``) are
 no-ops on one device (mode ``""``) and are left out until the multi-device
-slice; ``attention_decode`` waits for the decode slice.  Attention is plain torch ops, as the reference's is a
-jnp graph (no Pallas kernel): no ``scaled_dot_product_attention``, whose
-numerics are not the reference's.
+slice.  Attention is plain torch ops, as the reference's is a jnp graph (no
+Pallas kernel): no ``scaled_dot_product_attention``, whose numerics are not
+the reference's.
+
+``attention_decode`` writes the step's K and V into the cache it is given,
+in place (the reference's ``dynamic_update_slice`` builds a new array; a
+second copy of a full-size cache does not fit the card), at slot
+``min(pos, T - 1)``: ``dynamic_update_slice`` clamps its start index, so a
+step at ``pos >= T`` overwrites the last slot, and its mask then admits
+every slot, as in the reference.  The int8 cache quantises each token's
+head row symmetrically (``_quantise_kv``) as the compiled reference does,
+XLA's saturating cast included.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -238,6 +248,73 @@ def cross_attention(p: Params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
     v = (enc_out @ p["wv"].to(x.dtype)).reshape(b, t, kv, hd)
     out = _attend_full_mask_chunked(q, k, v)
     return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+# float32 1/127: XLA rewrites the reference's division of the float32-widened
+# amax by the constant 127 as a multiply by this reciprocal
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _quantise_kv(k: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-token-per-head symmetric int8 quantisation, as the reference's
+    ``layers.py:311-317`` runs compiled (its decode step is a ``lax.scan``):
+    ``k`` (..., hd) -> (int8 codes (..., hd), float32 scales (...)).
+
+    Under XLA the scale ``max|k| / 127`` is the float32 product ``max|k| *
+    f32(1/127)`` (the division by a constant becomes a multiply by its
+    reciprocal), and the stored float32 scale is that product unrounded
+    (the round trip through ``k.dtype`` is dropped); the codes divide by it
+    rounded to ``k.dtype``, floored at 1e-12 in ``k.dtype``, the quotient
+    correctly rounded in ``k.dtype``, rounded half to even and clamped to
+    [-128, 127] before the cast: XLA's float-to-int8 convert saturates,
+    torch's wraps (in bfloat16 the largest entry's quotient reaches 127.5
+    and rounds to 128, which would be stored as -128).  The reciprocal and
+    the floor are 0-d tensors on ``k``'s device, so the card computes what
+    the CPU does (fault C5)."""
+    dev = k.device
+    amax = torch.amax(torch.abs(k), dim=-1).to(torch.float32)
+    s = amax * torch.full((), _INV_127, dtype=torch.float32, device=dev)
+    floor = torch.full((), 1e-12, dtype=k.dtype, device=dev)
+    codes = torch.round(k / torch.maximum(s.to(k.dtype), floor)[..., None])
+    return torch.clamp(codes, -128, 127).to(torch.int8), s
+
+
+def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
+                     cache_k: Tensor, cache_v: Tensor, pos: Tensor,
+                     inv_freq: Tensor, is_local: bool,
+                     scales: Optional[Tuple[Tensor, Tensor]] = None
+                     ) -> Tensor:
+    """Single-token decode: x (B,1,D); cache_k/v (B,T,K,hd); pos a 0-d int32
+    tensor on the device.  Returns the attention output (B,1,D).
+
+    The step's K and V (with ``cfg.kv_cache_dtype == "int8"``: their int8
+    codes, and their float32 scales into ``scales`` = (k_scale, v_scale),
+    each (B,T,K)) are written into the caches in place at slot
+    ``min(pos, T - 1)``.  The int8 caches are dequantised as
+    ``codes.to(dtype) * scales.to(dtype)``, as the reference does."""
+    b, t = x.shape[0], cache_k.shape[1]
+    positions = pos.expand(b, 1)
+    q, k, v = _qkv(p, cfg, x, positions, inv_freq)
+    slot = torch.clamp(pos, max=t - 1).to(torch.int64).reshape(1)
+    if cfg.kv_cache_dtype == "int8":
+        k_s, v_s = scales
+        k_q, ks_new = _quantise_kv(k)
+        v_q, vs_new = _quantise_kv(v)
+        cache_k.index_copy_(1, slot, k_q)
+        cache_v.index_copy_(1, slot, v_q)
+        k_s.index_copy_(1, slot, ks_new)
+        v_s.index_copy_(1, slot, vs_new)
+        kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
+        vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
+    else:
+        cache_k.index_copy_(1, slot, k)
+        cache_v.index_copy_(1, slot, v)
+        kf, vf = cache_k, cache_v
+    k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
+    mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
+                           cfg.local_window)
+    out = gqa_attend(q, kf, vf, mask)
+    return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
 
 
 # -------------------------------------------------------------------- MLP --

@@ -1,12 +1,13 @@
-"""Mamba2 / SSD (state-space duality) blocks, arXiv:2405.21060: the
-training path.
+"""Mamba2 / SSD (state-space duality) blocks, arXiv:2405.21060.
 
 Counterpart of ``repro/models/ssm.py``.  The sequence is split into chunks
 of Q tokens; within a chunk the recurrence is a masked attention-like
 quadratic form, and chunk summary states pass from one chunk to the next
 (the reference's ``lax.scan``, a Python loop here, so one chunk's
-``(B, Q, Q, H)`` intermediates are built at a time).  ``ssd_decode`` (the
-O(1) recurrence) waits for the decode slice.
+``(B, Q, Q, H)`` intermediates are built at a time).  ``ssd_decode`` is
+the O(1) recurrence of one token, h' = exp(-dt·a)·h + dt·B⊗x, y = C·h,
+through ``_conv1d``'s ``state=`` history; it returns the new conv and SSM
+states, which the caller writes into its decode state.
 
 Layout: x (B,S,D) -> in_proj -> [z | xc | B | C | dt]; xc passes a short
 causal conv1d; heads H = d_inner / headdim P; state N = cfg.ssm_state;
@@ -228,3 +229,37 @@ def ssd_block(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     y = y.reshape(b_, s_, di)
     y = rmsnorm({"scale": p["norm_scale"]}, y * F.silu(z))
     return y @ p["out_proj"].to(x.dtype)
+
+
+def ssd_decode(p: Params, cfg: ModelConfig, x: Tensor, conv_state: Tensor,
+               ssm_state: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """O(1) single-token decode. x: (B,1,D); conv_state (B, K-1, conv_dim);
+    ssm_state (B,H,N,P).  Returns (y (B,1,D), new conv state, new SSM
+    state), in the reference's dtypes: dt, its softplus and the decay in
+    float32, the state update in the state's and the activations' dtype."""
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+    conv_out, new_conv = _conv1d(cfg, p["conv_w"], p["conv_b"], conv_in,
+                                 state=conv_state)
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    xc = conv_out[..., :di]
+    bmat = conv_out[..., di:di + g * n].reshape(-1, g, n)
+    cmat = conv_out[..., di + g * n:].reshape(-1, g, n)
+    b_ = x.shape[0]
+    h, pd = cfg.ssm_heads, cfg.ssm_headdim
+    hg = h // g
+    xh = xc.reshape(b_, h, pd)
+    dt = softplus(dt.to(torch.float32) + p["dt_bias"])[:, 0, :]
+    a = torch.exp(p["a_log"])
+    dec = torch.exp(-dt * a[None, :])                        # (B,H)
+    bh = torch.repeat_interleave(bmat, hg, dim=1)            # (B,H,N)
+    ch = torch.repeat_interleave(cmat, hg, dim=1)
+    new_state = ssm_state * dec[..., None, None].to(ssm_state.dtype) \
+        + (dt[..., None, None].to(xh.dtype)
+           * bh[..., :, None] * xh[..., None, :])            # (B,H,N,P)
+    y = torch.einsum("bhn,bhnp->bhp", ch, new_state)
+    y = y + xh * p["d_skip"][None, :, None].to(xh.dtype)
+    y = y.reshape(b_, 1, di)
+    y = rmsnorm({"scale": p["norm_scale"]}, y * F.silu(z))
+    return y @ p["out_proj"].to(x.dtype), new_conv, new_state

@@ -1,8 +1,7 @@
 """Model assembly for every family: parameters, the training forward and
-loss.
+loss, and the single-token decode step with its KV-cache / SSM state.
 
-Counterpart of ``repro/models/transformer.py``'s training path for all six
-families:
+Counterpart of ``repro/models/transformer.py`` for all six families:
 
   dense   pre-norm GQA transformer (gemma3/qwen2.5/internlm2/glm4)
   moe     dense attention + top-k MoE FFN (llama4-maverick, olmoe)
@@ -13,8 +12,18 @@ families:
   vlm     dense decoder with prepended patch embeddings (phi-3-vision; CLIP
           frontend stubbed)
 
-The decode step (``init_decode_state``, ``decode_step``) waits for the
-decode slice.
+``init_decode_state`` gives each family's state with the reference's keys,
+shapes and dtypes (an int8 cache with float32 per-token-per-head scales
+for dense, moe and vlm when ``cfg.kv_cache_dtype == "int8"``; ``pos`` a 0-d
+int32 tensor on the device).  ``decode_step`` consumes the state it is
+given: it writes the step's K/V (and scales), conv and SSM states into the
+state's own tensors, in place, and returns a dict of those tensors with
+``pos`` advanced, where the reference's functional update builds new arrays (a
+second copy of a full-size cache does not fit the card).  A caller that
+needs the state before the step copies it first.  A step at ``pos >=
+max_seq`` writes the last slot (``dynamic_update_slice`` clamps its start
+index) and attends to every slot, as in the reference.  The step reads
+nothing back to the host.
 
 Parameters keep the reference's layer-stacked tree: one tensor per stacked
 leaf, ``(n_layers, ...)`` (``(n_layers, E, D, F)`` for the experts), so a
@@ -404,3 +413,143 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
     ce = torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token with cache)
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype: Optional[str] = None,
+                      device: DeviceLike = None) -> Dict[str, Tensor]:
+    """The decode state of ``cfg``'s family, zeros, on ``device`` (default
+    CUDA): the reference's keys, shapes and dtypes (``dtype`` defaults to
+    ``cfg.dtype``).  encdec's ``enc_out`` (the cached encoder output) is
+    the caller's to fill."""
+    dev = resolve_device(device)
+    dt = DTYPES[dtype or cfg.dtype]
+    kv, hd = cfg.n_kv_heads, cfg.hd
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    state: Dict[str, Tensor] = {"pos": zeros((), torch.int32)}
+    cache = (batch, max_seq, kv, hd)
+    if cfg.family in ("dense", "moe", "vlm"):
+        if cfg.kv_cache_dtype == "int8":
+            state["k"] = zeros((cfg.n_layers,) + cache, torch.int8)
+            state["v"] = zeros((cfg.n_layers,) + cache, torch.int8)
+            state["k_scale"] = zeros((cfg.n_layers,) + cache[:3],
+                                     torch.float32)
+            state["v_scale"] = zeros((cfg.n_layers,) + cache[:3],
+                                     torch.float32)
+        else:
+            state["k"] = zeros((cfg.n_layers,) + cache)
+            state["v"] = zeros((cfg.n_layers,) + cache)
+    elif cfg.family in ("ssm", "hybrid"):
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        state["conv"] = zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                               conv_dim))
+        state["ssm"] = zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                              cfg.ssm_state, cfg.ssm_headdim))
+        if cfg.family == "hybrid":
+            napp = n_shared_applications(cfg)
+            state["k"] = zeros((napp,) + cache)
+            state["v"] = zeros((napp,) + cache)
+            state["x0"] = zeros((batch, 1, cfg.d_model))
+    elif cfg.family == "encdec":
+        state["k"] = zeros((cfg.n_layers,) + cache)
+        state["v"] = zeros((cfg.n_layers,) + cache)
+        # cached encoder output for cross-attention
+        state["enc_out"] = zeros((batch, max_seq, cfg.d_model))
+    else:
+        raise ValueError(cfg.family)
+    return state
+
+
+def _ssm_decode_layer(bp: Params, cfg: ModelConfig, h: Tensor,
+                      state: Dict[str, Tensor], i: int) -> Tensor:
+    """Layer ``i``'s Mamba2 block on one token; its conv and SSM states are
+    written into ``state`` in place."""
+    y, nc, ns = S.ssd_decode(bp["ssd"], cfg, L.rmsnorm(bp["norm1"], h),
+                             state["conv"][i], state["ssm"][i])
+    state["conv"][i].copy_(nc)
+    state["ssm"][i].copy_(ns)
+    return h + y
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, state: Dict[str, Tensor],
+                token: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """token: (B, 1) int32 -> (logits (B, 1, V), state).  The state is
+    consumed: its tensors are updated in place and the returned dict holds
+    them with ``pos`` advanced (see the module's note).  Runs under
+    ``torch.no_grad()``, so ``nn.Parameter`` leaves build no graph over the
+    cache."""
+    dev = token.device
+    inv_freq = L.rope_frequencies(cfg, dev)
+    is_local = layer_flags(cfg)["is_local"]
+    x = L.embed(params["embed"], cfg, token)
+    pos = state["pos"]
+    blocks = _unbind_layers(params["layers"], cfg.n_layers)
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        q8 = cfg.kv_cache_dtype == "int8"
+        h = x
+        for i, bp in enumerate(blocks):
+            scales = (state["k_scale"][i], state["v_scale"][i]) if q8 \
+                else None
+            h = h + L.attention_decode(
+                bp["attn"], cfg, L.rmsnorm(bp["norm1"], h), state["k"][i],
+                state["v"][i], pos, inv_freq, bool(is_local[i]), scales)
+            if cfg.family == "moe":
+                y, _ = M.moe_block(bp["moe"], cfg, L.rmsnorm(bp["norm2"], h),
+                                   dispatch=cfg.moe_dispatch)
+                h = h + y
+            else:
+                h = h + L.mlp(bp["mlp"], cfg, L.rmsnorm(bp["norm2"], h))
+
+    elif cfg.family == "ssm":
+        h = x
+        for i, bp in enumerate(blocks):
+            h = _ssm_decode_layer(bp, cfg, h, state, i)
+
+    elif cfg.family == "hybrid":
+        # groups of ``period`` Mamba2 layers, each followed by the shared
+        # block (its cache at index g), then the layers left over
+        shared = params["shared"]
+        period = cfg.shared_attn_period
+        h, x0 = x, x
+        for i, bp in enumerate(blocks):
+            h = _ssm_decode_layer(bp, cfg, h, state, i)
+            if (i + 1) % period == 0:
+                g = (i + 1) // period - 1
+                fused = torch.cat([h, x0], dim=-1) @ shared["fuse"].to(h.dtype)
+                a = L.attention_decode(
+                    shared["attn"], cfg, L.rmsnorm(shared["norm1"], fused),
+                    state["k"][g], state["v"][g], pos, inv_freq, False)
+                hh = fused + a
+                h = h + hh + L.mlp(shared["mlp"], cfg,
+                                   L.rmsnorm(shared["norm2"], hh))
+
+    elif cfg.family == "encdec":
+        enc_out = state["enc_out"]
+        b, t_enc = enc_out.shape[0], enc_out.shape[1]
+        enc_pos = torch.arange(t_enc, dtype=torch.int32,
+                               device=dev).expand(b, t_enc)
+        h = x
+        for i, bp in enumerate(blocks):
+            h = h + L.attention_decode(
+                bp["attn"], cfg, L.rmsnorm(bp["norm1"], h), state["k"][i],
+                state["v"][i], pos, inv_freq, False)
+            h = h + L.cross_attention(bp["cross"], cfg,
+                                      L.rmsnorm(bp["norm2"], h), enc_out,
+                                      pos.expand(b, 1), enc_pos, inv_freq)
+            h = h + L.mlp(bp["mlp"], cfg, L.rmsnorm(bp["norm3"], h))
+    else:
+        raise ValueError(cfg.family)
+
+    h = L.rmsnorm(params["final_norm"], h)
+    logits = L.unembed(params["embed"], params.get("lm_head"), cfg, h)
+    return logits, dict(state, pos=pos + 1)

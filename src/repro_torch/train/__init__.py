@@ -1,3 +1,3 @@
 """The training substrate: optimizers, bitplane gradient compression, the
-train step, progressive bitplane checkpoints and the fault-tolerance
-harness."""
+train and serve steps, progressive bitplane checkpoints and the
+fault-tolerance harness."""

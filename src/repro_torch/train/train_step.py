@@ -4,7 +4,10 @@ Counterpart of ``repro/train/train_step.py::make_train_step``: returns
 ``(opt_init, train_step)`` where ``train_step(params, opt_state, batch) ->
 (params, opt_state, metrics)`` over a parameter tree of tensors.  The
 reference's step is one ``jax.jit``; the port's is eager autograd (no
-``torch.compile``).  ``make_serve_step`` waits for the decode slice.
+``torch.compile``).  ``make_serve_step`` returns ``serve_step(params,
+state, token) -> (logits, state)``, the reference's: one
+``transformer.decode_step``, which runs under ``torch.no_grad()`` and
+updates the decode state in place (the state passed in is consumed).
 
 Optional hook ``grad_transform``: applied to the gradient tree before
 clipping (bitplane gradient compression with error feedback plugs in
@@ -60,3 +63,8 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
     return opt_init, train_step
 
 
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(params: Pytree, state: Dict[str, torch.Tensor],
+                   token: torch.Tensor):
+        return T.decode_step(params, cfg, state, token)
+    return serve_step

@@ -77,7 +77,9 @@ FORBIDDEN = re.compile(
                                        REPO / "tools" / "time_serve.py",
                                        REPO / "tools" / "time_checkpoint.py",
                                        REPO / "tools" /
-                                       "profile_train_step.py"]))
+                                       "profile_train_step.py",
+                                       REPO / "tools" /
+                                       "profile_decode_step.py"]))
 def test_no_jax_or_repro_import_statement(path):
     src = (REPO / path).read_text()
     assert not FORBIDDEN.findall(src), path

@@ -101,12 +101,21 @@ def main(argv=None) -> int:
         loss = step(2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    print_profile(prof, wall, f"{args.arch} {cfg.n_layers} layers, batch "
+                  f"{args.batch} x seq {args.seq}: loss {loss:.4f}; step",
+                  smi)
+    return 0
+
+
+def print_profile(prof, wall: float, head: str, smi: str) -> None:
+    """The profiled window's wall seconds beside its kernels' summed device
+    time (the busy share; one stream), then the device time by kernel, by
+    class of kernel and by torch operator, and the nvidia-smi line."""
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    print(f"[profile] {args.arch} {cfg.n_layers} layers, batch "
-          f"{args.batch} x seq {args.seq}: loss {loss:.4f}; step wall "
-          f"{wall:.3f}s under the profiler, device kernels {busy:.3f}s "
-          f"({busy / wall:.0%} busy), {len(kernels)} device events ({smi})")
+    print(f"[profile] {head} wall {wall:.4f}s under the profiler, device "
+          f"kernels {busy:.4f}s ({busy / wall:.0%} busy), {len(kernels)} "
+          f"device events ({smi})")
     by = {}
     for e in kernels:
         name = "matrix products (cuBLAS/CUTLASS)" if any(
@@ -130,7 +139,6 @@ def main(argv=None) -> int:
         print(f"[profile] op {a.self_device_time_total / 1e3:9.2f} ms "
               f"{a.count:6d}x {a.key}")
     print(smi)
-    return 0
 
 
 if __name__ == "__main__":
