@@ -182,16 +182,46 @@ def accumulate_planes(count: int, nbits: int, blobs: Sequence[bytes],
                                       count)
 
 
+def decode_magnitudes(lbp: LevelBitplanes, k: int,
+                      state: Optional[torch.Tensor] = None, start: int = 0,
+                      device: DeviceLike = None) -> torch.Tensor:
+    """Accumulate planes [start, k) of a group into an int64 (count,)
+    magnitude state holding the uint64 pattern (incremental recomposition,
+    Definition 1(2)): on ``state``'s device when one is given, else on
+    ``device`` (default CUDA).  On the card the OR is one launch of the
+    decode kernel (``ops.unpack_bitplanes``)."""
+    device = state.device if state is not None else resolve_device(device)
+    if lbp.exponent is None:
+        return torch.zeros(lbp.count, dtype=torch.int64, device=device)
+    k = min(k, lbp.nbits)
+    if start >= k:
+        return state if state is not None else \
+            torch.zeros(lbp.count, dtype=torch.int64, device=device)
+    return accumulate_planes(lbp.count, lbp.nbits, lbp.planes[start:k],
+                             start, state, device)
+
+
 def values_from_planes(count: int, exponent: Optional[int], nbits: int,
                        mag: torch.Tensor, signs_blob: bytes) -> torch.Tensor:
     """Magnitude state + encoded sign segment -> float64 coefficient values
-    on the state's device."""
+    on the state's device (blob-level counterpart of ``decode_values``)."""
     if exponent is None:
         return torch.zeros(count, dtype=F64, device=mag.device)
     signs = np.unpackbits(sign_plane_bytes(count, signs_blob),
                           count=count).astype(bool)
-    vals = mag[:count].to(F64) * float(np.float64(2.0) ** (exponent - nbits))
+    m = mag[:count]
+    # the magnitude is unsigned (a 64-plane group sets bit 63): both 32-bit
+    # halves convert exactly and the sum rounds once, as uint64 -> float64
+    unsigned = (((m >> 32) & 0xFFFFFFFF).to(F64) * 4294967296.0
+                + (m & 0xFFFFFFFF).to(F64))
+    vals = unsigned * float(np.float64(2.0) ** (exponent - nbits))
     return torch.where(torch.from_numpy(signs).to(mag.device), -vals, vals)
+
+
+def decode_values(lbp: LevelBitplanes, mag: torch.Tensor) -> torch.Tensor:
+    """Magnitude state + signs -> float64 coefficient values."""
+    return values_from_planes(lbp.count, lbp.exponent, lbp.nbits, mag,
+                              lbp.signs)
 
 
 def decode_prefix(lbp: LevelBitplanes, k: int, device: DeviceLike = None,

@@ -20,6 +20,7 @@ at the deepest contiguous plane prefix it could decode (degraded mode).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -44,6 +45,14 @@ class _Ready:
 
     def result(self):
         return self._res
+
+
+@dataclass
+class PlaneSegment:
+    """Address and size of one encoded plane segment."""
+    level: int
+    plane: int
+    nbytes: int
 
 
 class PlaneSource:

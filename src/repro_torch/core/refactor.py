@@ -73,7 +73,7 @@ from repro_torch.compressors.snapshots import (
 )
 from repro_torch.core.masks import OutlierMask, build_zero_velocity_mask
 from repro_torch.device import F64, DeviceLike, resolve_device
-from repro_torch.options import SessionOptions
+from repro_torch.options import SessionOptions, _from_legacy
 from repro_torch.transform.hierarchical import (
     decompose_hb,
     grid_levels,
@@ -101,6 +101,20 @@ def _pred_planes(meta) -> int:
     ob groups) default to full depth, where the truncation is the
     identity."""
     return meta.pred_planes if meta.pred_planes is not None else meta.nbits
+
+
+def _resolve_session_options(options: Optional[SessionOptions],
+                             legacy: dict, where: str) -> SessionOptions:
+    """Shared shim: an explicit SessionOptions wins; loose legacy kwargs
+    build one through the once-warning deprecation path; neither means the
+    defaults.  Mixing the two spellings is an error: merging them would
+    make the options object lie about what the session uses."""
+    if legacy:
+        if options is not None:
+            raise TypeError(f"{where}: pass either a SessionOptions object "
+                            f"or legacy keyword arguments, not both")
+        return _from_legacy(SessionOptions, legacy, where)
+    return options if options is not None else SessionOptions()
 
 
 @dataclass(frozen=True)
@@ -176,12 +190,16 @@ class BitplaneVarArchive:
     def plane_sources(self) -> List[InMemoryPlaneSource]:
         return [InMemoryPlaneSource(g) for g in self.groups]
 
-    def open_reader(self, options: SessionOptions,
-                    device: torch.device) -> "_BitplaneVarReader":
+    def open_reader(self, options: Optional[SessionOptions] = None,
+                    device: DeviceLike = None,
+                    **legacy) -> "_BitplaneVarReader":
+        opts = _resolve_session_options(options, legacy,
+                                        "BitplaneVarArchive.open_reader")
         return _BitplaneVarReader(
-            self, device, contrib_budget_bytes=options.contrib_budget_bytes,
-            contrib_pool=options.contrib_pool,
-            decode_batcher=options.decode_batcher)
+            self, resolve_device(device),
+            contrib_budget_bytes=opts.contrib_budget_bytes,
+            contrib_pool=opts.contrib_pool,
+            decode_batcher=opts.decode_batcher)
 
 
 @dataclass
@@ -193,11 +211,15 @@ class SnapshotVarArchive:
     def total_nbytes(self) -> int:
         return self.archive.total_nbytes
 
-    def open_reader(self, options: SessionOptions,
-                    device: torch.device) -> "_SnapshotVarReader":
+    def open_reader(self, options: Optional[SessionOptions] = None,
+                    device: DeviceLike = None,
+                    **legacy) -> "_SnapshotVarReader":
         # snapshot readers hold at most one decoded field; the contribution
-        # budget is a bitplane-reader concept
-        return _SnapshotVarReader(self, device)
+        # budget/pool is a bitplane-reader concept and is accepted (and
+        # validated) for interface uniformity only
+        _resolve_session_options(options, legacy,
+                                 "SnapshotVarArchive.open_reader")
+        return _SnapshotVarReader(self, resolve_device(device))
 
 
 @dataclass
@@ -217,9 +239,10 @@ class Archive:
         n += sum(m.nbytes for m in self.masks.values())
         return n
 
-    def open(self, options: Optional[SessionOptions] = None
-             ) -> "RetrievalSession":
-        return RetrievalSession(self, options)
+    def open(self, options: Optional[SessionOptions] = None,
+             **legacy) -> "RetrievalSession":
+        opts = _resolve_session_options(options, legacy, "Archive.open")
+        return RetrievalSession(self, opts)
 
     def n_elements(self, name: str) -> int:
         return int(np.prod(self.shapes[name]))
@@ -750,14 +773,16 @@ class RetrievalSession:
     readers) and skip the others.
 
     Session policy comes from a :class:`repro_torch.options.SessionOptions`
-    (prefetch depth, contribution budget or shared pool, decode batcher).
-    ``coalescer`` (assignable after construction) routes ``reconstruct``
-    through cross-session single-flight."""
+    (prefetch depth, contribution budget or shared pool, decode batcher);
+    the pre-v4 loose kwargs still work through the once-warning
+    deprecation shim.  ``coalescer`` (assignable after construction)
+    routes ``reconstruct`` through cross-session single-flight."""
 
-    def __init__(self, archive,
-                 options: Optional[SessionOptions] = None):
+    def __init__(self, archive, options: Optional[SessionOptions] = None,
+                 **legacy):
         self.archive = archive
-        self.options = options if options is not None else SessionOptions()
+        self.options = _resolve_session_options(options, legacy,
+                                                "RetrievalSession")
         self.contrib_budget_bytes = self.options.contrib_budget_bytes
         self.contrib_pool = self.options.contrib_pool
         self.coalescer = None

@@ -1,10 +1,13 @@
-"""Synthetic stand-in for the paper's GE dataset (Table III): copy of
-``smooth_field`` and ``ge_like_fields`` from ``repro/data/synthetic.py``
-(numpy, seeded).  The fields keep the structural properties the experiments
-depend on: smooth multi-scale variation (so multilevel coefficients decay
-and bitplanes compress), physically plausible positive pressure and
-density, and a fraction of exact-zero velocity nodes (wall boundaries —
-exercising the outlier mask).
+"""Synthetic stand-ins for the paper's datasets (Table III): copy of
+``repro/data/synthetic.py`` (numpy, seeded, bit-equal to it).
+
+The real GE/NYX/Hurricane/S3D files are not available offline, so the
+fields carry the structural properties the experiments depend on: smooth
+multi-scale variation (so multilevel coefficients decay and bitplanes
+compress), physically plausible positive pressure, density and
+temperature, a fraction of exact-zero velocity nodes (wall boundaries —
+exercising the outlier mask), and species concentrations spanning decades
+(S3D).
 """
 from __future__ import annotations
 
@@ -59,3 +62,27 @@ def ge_like_fields(n: int = 1 << 16, seed: int = 0,
         for v in ("Vx", "Vy", "Vz"):
             fields[v][start:start + n_zero] = 0.0
     return fields
+
+
+def nyx_like_fields(shape: Tuple[int, int, int] = (33, 33, 33),
+                    seed: int = 7) -> Dict[str, np.ndarray]:
+    """NYX/Hurricane-like: 3D velocity components for total-velocity QoI."""
+    return {
+        "Vx": smooth_field(shape, seed + 1, lo=-3.2e7, hi=3.4e7),
+        "Vy": smooth_field(shape, seed + 2, lo=-2.8e7, hi=3.1e7),
+        "Vz": smooth_field(shape, seed + 3, lo=-3.0e7, hi=2.9e7),
+    }
+
+
+def s3d_like_fields(shape: Tuple[int, int, int] = (33, 33, 17),
+                    seed: int = 13) -> Dict[str, np.ndarray]:
+    """S3D-like: 8 species molar concentrations (positive, decades of scale);
+    QoIs are pairwise multiplications (rate-of-progress intermediates)."""
+    names = ["H2", "O2", "H2O", "H", "O", "OH", "HO2", "H2O2"]
+    out = {}
+    for i, nm in enumerate(names):
+        base = smooth_field(shape, seed + i, lo=0.0, hi=1.0)
+        scale = 10.0 ** (-2.0 * (i % 4))  # decades of magnitude
+        out[f"x{i}"] = (1e-8 + base) * scale
+        out[nm] = out[f"x{i}"]  # alias by species name too
+    return out

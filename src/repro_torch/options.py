@@ -1,16 +1,72 @@
 """Open and session options of the port.
 
-Counterpart of ``repro/options.py``: :class:`OpenOptions` (how a store
-archive is opened: transport, verification, caching, fault tolerance) and
-:class:`SessionOptions` (how one retrieval session reads), reduced to the
-fields the readers, the store plane, live archives and the serve plane
-read.  The reference's shim for pre-v4 loose keyword arguments has no
-counterpart here.
+Counterpart of ``repro/options.py``: two frozen dataclasses,
+:class:`OpenOptions` (how a store archive is opened: transport,
+verification, caching, fault tolerance) and :class:`SessionOptions` (how
+one retrieval session reads: prefetch depth, contribution budget or pool,
+decode batcher), with presets for the common deployments.
+
+The pre-v4 loose keyword arguments (``open_archive(path, verify=False)``,
+``archive.open(contrib_budget_bytes=...)``) keep working through a shim
+that warns ONCE per call-site pattern with :class:`ReproDeprecationWarning`.
+The port's ``device`` argument is a real keyword everywhere and never goes
+through the shim.
+
+This module imports nothing from ``repro_torch.store`` or
+``repro_torch.core``: both shim layers import it, so it sits below them.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import warnings
+from dataclasses import dataclass, fields, replace
 from typing import Any, Callable, Optional
+
+__all__ = [
+    "OpenOptions",
+    "SessionOptions",
+    "ReproDeprecationWarning",
+    "warn_deprecated_once",
+]
+
+
+class ReproDeprecationWarning(DeprecationWarning):
+    """A deprecated API spelling of the port (legacy kwargs, shimmed
+    signatures).  Its own type, so a caller can escalate exactly these to
+    errors without third-party deprecation noise."""
+
+
+_warned: set = set()
+
+
+def warn_deprecated_once(key: str, message: str, stacklevel: int = 3) -> None:
+    """Emit ``message`` as a ReproDeprecationWarning the FIRST time ``key``
+    is seen in this process; later identical call sites stay silent, so a
+    serve loop calling a shimmed API per request does not flood stderr."""
+    if key in _warned:
+        return
+    _warned.add(key)
+    warnings.warn(message, ReproDeprecationWarning, stacklevel=stacklevel)
+
+
+def _reset_deprecation_warnings() -> None:
+    """Test hook: make every deprecation warn again."""
+    _warned.clear()
+
+
+def _from_legacy(cls, legacy: dict, where: str):
+    """Build an options object from legacy kwargs, warning once.  Unknown
+    names raise TypeError, as a real signature mismatch would."""
+    valid = {f.name for f in fields(cls)}
+    unknown = set(legacy) - valid
+    if unknown:
+        raise TypeError(f"{where}: unexpected keyword argument(s) "
+                        f"{sorted(unknown)}")
+    warn_deprecated_once(
+        f"{where}:{','.join(sorted(legacy))}",
+        f"{where}: passing {sorted(legacy)} as loose keyword arguments is "
+        f"deprecated; pass {cls.__name__}(...) instead",
+    )
+    return cls(**legacy)
 
 
 @dataclass(frozen=True)
@@ -53,6 +109,15 @@ class OpenOptions:
         return cls(cache=cache, retry_policy=retry_policy,
                    quarantine=quarantine)
 
+    @classmethod
+    def unverified(cls) -> "OpenOptions":
+        """Forensics preset: skip crc32c so a damaged container can still
+        be inspected; never publishes bytes to a shared cache."""
+        return cls(verify=False)
+
+    def with_(self, **changes) -> "OpenOptions":
+        return replace(self, **changes)
+
 
 @dataclass(frozen=True)
 class SessionOptions:
@@ -78,6 +143,10 @@ class SessionOptions:
     decode_batcher: Optional[Any] = None
 
     @classmethod
+    def default(cls) -> "SessionOptions":
+        return cls()
+
+    @classmethod
     def memory_bounded(cls, budget_bytes: int) -> "SessionOptions":
         """Cap each variable's resident recompose state; spilled levels are
         rebuilt on demand (outputs stay bit-identical)."""
@@ -87,3 +156,6 @@ class SessionOptions:
     def pooled(cls, pool) -> "SessionOptions":
         """Serve-plane preset: retention borrows from one shared pool."""
         return cls(contrib_pool=pool)
+
+    def with_(self, **changes) -> "SessionOptions":
+        return replace(self, **changes)

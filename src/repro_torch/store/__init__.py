@@ -13,7 +13,8 @@ appends timesteps to a live (journaled, v4) archive that open sessions
 follow through ``StoreArchive.refresh()``.
 ``repro_torch.store.httpd`` is the matching ranged-GET endpoint.
 """
-from repro_torch.options import OpenOptions, SessionOptions
+from repro_torch.options import OpenOptions, ReproDeprecationWarning, \
+    SessionOptions
 from repro_torch.store.bytestore import (
     ByteStore,
     FileByteStore,
@@ -67,7 +68,7 @@ __all__ = [
     "save_archive", "save_sharded_archive",
     "open_archive", "memory_store_archive",
     "ArchiveWriter", "ensure_archive", "JOURNAL_NAME",
-    "OpenOptions", "SessionOptions",
+    "OpenOptions", "SessionOptions", "ReproDeprecationWarning",
     "segment_depth", "manifest_archive_id",
     "crc32c", "SegmentFetcher", "SegmentEntry", "FetchStats", "ChecksumError",
     "StoreHTTPServer",

@@ -77,9 +77,10 @@ from repro_torch.core.refactor import (
     SnapshotVarArchive,
     VarAvailability,
     _BitplaneVarReader,
+    _resolve_session_options,
 )
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.options import OpenOptions, SessionOptions
+from repro_torch.options import OpenOptions, SessionOptions, _from_legacy
 from repro_torch.store.bytestore import ByteStore, FileByteStore, \
     HTTPByteStore, MemoryByteStore
 from repro_torch.store.cache import SegmentCache
@@ -365,15 +366,19 @@ class StoreBitplaneVar:
         return [FetcherPlaneSource(self._fetcher, f"{self.name}/g{l}", meta)
                 for l, meta in enumerate(self.groups)]
 
-    def open_reader(self, options: SessionOptions,
-                    device: torch.device) -> _BitplaneVarReader:
+    def open_reader(self, options: Optional[SessionOptions] = None,
+                    device: DeviceLike = None,
+                    **legacy) -> _BitplaneVarReader:
+        opts = _resolve_session_options(options, legacy,
+                                        "StoreBitplaneVar.open_reader")
         # the fetcher's FetchStats doubles as the ContribStats sink so one
         # object reports transport traffic AND reader residency/spills
         return _BitplaneVarReader(
-            self, device, contrib_budget_bytes=options.contrib_budget_bytes,
+            self, resolve_device(device),
+            contrib_budget_bytes=opts.contrib_budget_bytes,
             contrib_stats=self._fetcher.stats,
-            contrib_pool=options.contrib_pool,
-            decode_batcher=options.decode_batcher)
+            contrib_pool=opts.contrib_pool,
+            decode_batcher=opts.decode_batcher)
 
 
 class _SnapshotHandle:
@@ -522,10 +527,14 @@ class StoreSnapshotVar:
     def total_nbytes(self) -> int:
         return sum(h.nbytes for h in self.snapshots)
 
-    def open_reader(self, options: SessionOptions, device: torch.device):
-        # contribution budgets are bitplane-reader state
+    def open_reader(self, options: Optional[SessionOptions] = None,
+                    device: DeviceLike = None, **legacy):
+        # contribution budgets/pools are bitplane-reader state; the options
+        # object is accepted (and validated) for interface uniformity
+        _resolve_session_options(options, legacy,
+                                 "StoreSnapshotVar.open_reader")
         cls = _StoreDeltaSnapshotReader if self.delta else _StoreSnapshotReader
-        return cls(self, device)
+        return cls(self, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -633,9 +642,12 @@ class StoreTimeseriesVar:
         self.base_t += n
         return dropped
 
-    def open_reader(self, options: SessionOptions,
-                    device: torch.device) -> "_TimeseriesReader":
-        return _TimeseriesReader(self, device)
+    def open_reader(self, options: Optional[SessionOptions] = None,
+                    device: DeviceLike = None,
+                    **legacy) -> "_TimeseriesReader":
+        _resolve_session_options(options, legacy,
+                                 "StoreTimeseriesVar.open_reader")
+        return _TimeseriesReader(self, resolve_device(device))
 
 
 class _TimeseriesReader:
@@ -954,9 +966,10 @@ class StoreArchive:
     def n_elements(self, name: str) -> int:
         return int(np.prod(self.shapes[name]))
 
-    def open(self, options: Optional[SessionOptions] = None
-             ) -> RetrievalSession:
-        return RetrievalSession(self, options)
+    def open(self, options: Optional[SessionOptions] = None,
+             **legacy) -> RetrievalSession:
+        opts = _resolve_session_options(options, legacy, "StoreArchive.open")
+        return RetrievalSession(self, opts)
 
     def close(self) -> None:
         self.fetcher.close()
@@ -973,13 +986,24 @@ def is_url(source: str) -> bool:
     return source.startswith(("http://", "https://"))
 
 
+def _resolve_open_options(options: Optional[OpenOptions],
+                          legacy: dict, where: str) -> OpenOptions:
+    """The OpenOptions counterpart of ``_resolve_session_options``."""
+    if legacy:
+        if options is not None:
+            raise TypeError(f"{where}: pass either an OpenOptions object or "
+                            f"legacy keyword arguments, not both")
+        return _from_legacy(OpenOptions, legacy, where)
+    return options if options is not None else OpenOptions()
+
+
 def _journal_manifest(manifest: dict) -> bool:
     """Does this manifest advertise a live journal worth tailing?"""
     return bool(manifest.get("journal")) and not manifest.get("sealed")
 
 
 def open_archive(source, options: Optional[OpenOptions] = None,
-                 device: DeviceLike = None) -> StoreArchive:
+                 device: DeviceLike = None, **legacy) -> StoreArchive:
     """Open a container — single-file, sharded, local, or over HTTP — whose
     sessions decode on ``device`` (default CUDA; raises without it unless
     ``device="cpu"``).
@@ -998,15 +1022,16 @@ def open_archive(source, options: Optional[OpenOptions] = None,
         through the store, so its transfer is accounted like any other read.
 
     ``options`` is an :class:`repro_torch.options.OpenOptions` bundling the
-    transport/integrity knobs and journal following.
+    transport/integrity knobs and journal following.  The pre-v4 loose
+    keyword arguments still work through a once-warning deprecation shim.
 
     A live (journaled, unsealed) sharded archive opens at its current
     journal tail; ``StoreArchive.refresh()`` picks up later appends —
     locally by re-reading ``journal.jsonl``, over HTTP by a conditional GET
     that costs one 304 when nothing changed.
     """
+    opts = _resolve_open_options(options, legacy, "open_archive")
     dev = resolve_device(device)
-    opts = options if options is not None else OpenOptions()
     blob_resolver = opts.blob_resolver
 
     def build(manifest: dict, default: Optional[StoreSpec],
@@ -1101,12 +1126,13 @@ def open_archive(source, options: Optional[OpenOptions] = None,
 def memory_store_archive(archive: Archive,
                          options: Optional[OpenOptions] = None,
                          shard_by: str = "single",
-                         device: DeviceLike = None) -> StoreArchive:
+                         device: DeviceLike = None,
+                         **legacy) -> StoreArchive:
     """Round an in-memory Archive through the container format without
     touching disk (tests, benchmarks); sessions decode on ``device``
     (default CUDA).  ``shard_by`` exercises the sharded manifest with one
     MemoryByteStore per blob."""
-    opts = options if options is not None else OpenOptions()
+    opts = _resolve_open_options(options, legacy, "memory_store_archive")
     dev = resolve_device(device)
     manifest, payloads = build_sharded_container(archive, shard_by=shard_by)
     manifest = json.loads(json.dumps(manifest))   # exact same path as disk

@@ -68,6 +68,10 @@ FORBIDDEN = re.compile(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
                                        REPO / "chip_smoke.py",
                                        REPO / "examples" /
+                                       "quickstart_torch.py",
+                                       REPO / "examples" /
+                                       "ge_case_study_torch.py",
+                                       REPO / "examples" /
                                        "serve_retrieval_torch.py",
                                        REPO / "examples" /
                                        "train_lm_progressive_torch.py",
