@@ -11,9 +11,12 @@ mode is on, as it is in the reference's own trainer (its checkpoint module
 imports the bitplane codec, which turns x64 on).  The port computes them as
 that trainer does.
 
-The reference's sharding hints (``dist.hint``, ``_attn_shard_mode``) are
-no-ops on one device (mode ``""``) and are left out until the multi-device
-slice.  Attention is plain torch ops, as the reference's is a jnp graph (no
+The reference's sharding hints sit at its places (``_attn_shard_mode``,
+``_full_batch_axes``, ``attention``'s ``shard_cb`` and output hint, the
+``ctx_mode`` hints of ``gqa_attend_chunked``): ``dist.hint`` redistributes a
+``DTensor`` and returns a plain tensor as it is, so with no mesh, or on
+plain tensors, the layers compute what they computed without them.
+Attention is plain torch ops, as the reference's is a jnp graph (no
 Pallas kernel): no ``scaled_dot_product_attention``, whose numerics are not
 the reference's.
 
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DTYPES
+from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -117,7 +121,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _qkv(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-         inv_freq: Tensor):
+         inv_freq: Tensor, shard_cb=None):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"].to(x.dtype)
@@ -130,6 +134,10 @@ def _qkv(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
+    if shard_cb is not None:
+        # reshard before RoPE: the rotated tensors are float32 pairs, and
+        # the reshard would move twice the bytes
+        q, k, v = shard_cb(q, k, v)
     if inv_freq.shape[0]:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
@@ -177,10 +185,13 @@ QUERY_CHUNK = 512
 
 def gqa_attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                        k_pos: Tensor, is_local: bool, window: int,
-                       chunk: int = QUERY_CHUNK) -> Tensor:
+                       chunk: int = QUERY_CHUNK, ctx_mode: str = "") -> Tensor:
     """``gqa_attend`` over query chunks of ``chunk`` rows (the reference's
     ``lax.scan``, a Python loop here): queries are zero-padded to a whole
-    number of chunks at position 0, and the padded rows dropped."""
+    number of chunks at position 0, and the padded rows dropped.  With
+    ``ctx_mode == "seq"`` each chunk's rows and output are hinted onto
+    "model", heads replicated, as the reference hints its stacked chunks
+    (no ``_attn_shard_mode`` returns that mode)."""
     b, s, h, hd = q.shape
     if s <= chunk:
         return gqa_attend(q, k, v,
@@ -193,18 +204,74 @@ def gqa_attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     for c in range((s + pad) // chunk):
         rows = slice(c * chunk, (c + 1) * chunk)
         mask = gqa_scores_mask(q_pos[rows], k_pos, is_local, window)
-        outs.append(gqa_attend(q[:, rows], k, v, mask))
+        qc = q[:, rows]
+        if ctx_mode == "seq":
+            qc = dist.hint(qc, None, "model", dist.REP, dist.REP)
+        out = gqa_attend(qc, k, v, mask)
+        if ctx_mode == "seq":
+            out = dist.hint(out, None, "model", dist.REP, dist.REP)
+        outs.append(out)
     return torch.cat(outs, dim=1)[:, :s]
 
 
 def attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
               inv_freq: Tensor, is_local: bool) -> Tensor:
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions, inv_freq)
+    mode = _attn_shard_mode(cfg, b)
+
+    def shard_cb(q, k, v):
+        if mode == "batch":
+            # batch-parallel attention: when kv heads don't divide the
+            # model axis, the whole attention block shards on batch over
+            # (data, model), scores and their gradients device-local
+            spec = _full_batch_axes(b)
+            q = dist.hint(q, spec, dist.REP, dist.REP, dist.REP)
+            k = dist.hint(k, spec, dist.REP, dist.REP, dist.REP)
+            v = dist.hint(v, spec, dist.REP, dist.REP, dist.REP)
+        elif mode == "seq":
+            # context parallelism for forward-only paths: K/V gathered
+            k = dist.hint(k, None, None, dist.REP, dist.REP)
+            v = dist.hint(v, None, None, dist.REP, dist.REP)
+        return q, k, v
+
+    q, k, v = _qkv(p, cfg, x, positions, inv_freq,
+                   shard_cb=shard_cb if mode else None)
     pos1d = positions[0] if positions.dim() > 1 else positions
     out = gqa_attend_chunked(q, k, v, pos1d, pos1d, is_local,
-                             cfg.local_window)
+                             cfg.local_window, ctx_mode=mode)
+    if mode == "batch":
+        out = dist.hint(out, _full_batch_axes(b), dist.REP, dist.REP,
+                        dist.REP)
     return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def _full_batch_axes(b: int):
+    # data/model first: on the multi-pod mesh batch 256 divides data*model
+    # (256) but not *512 — attention then replicates over "pod"
+    axes = []
+    size = 1
+    for a in ("data", "model", "pod"):
+        sz = dist.axis_size(a)
+        if sz > 1 and b % (size * sz) == 0:
+            axes.append(a)
+            size *= sz
+    return tuple(axes)
+
+
+def _attn_shard_mode(cfg: ModelConfig, b: int) -> str:
+    """'' (plain: kv heads divide the model axis, or batch too small) |
+    'batch' (shard the attention block on batch over data x model).  Only
+    with ``cfg.attn_param_replication`` (attention weights replicated over
+    "model"): against head-sharded weights the hints would fight the
+    layout."""
+    msize = dist.axis_size("model")
+    if msize <= 1 or cfg.n_kv_heads % msize == 0:
+        return ""
+    if not cfg.attn_param_replication:
+        return ""
+    if b % (dist.axis_size("data") * msize) == 0:
+        return "batch"
+    return ""
 
 
 def _attend_full_mask_chunked(q: Tensor, k: Tensor, v: Tensor,

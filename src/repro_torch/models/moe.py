@@ -7,8 +7,9 @@ positions, a scatter into expert space and a gather back), ``onehot``
 (dense (N, E, C) dispatch masks) and ``sort`` (argsort by expert, then a
 scatter-add back into token space).  Expert weights are stacked (E, D, F);
 a shared expert (Llama-4 style) adds to the routed output when
-``cfg.n_shared_experts`` is set.  The reference's sharding hints
-(``dist.hint``) are no-ops on one device and are left out.
+``cfg.n_shared_experts`` is set.  ``_expert_ffn`` carries the reference's
+four sharding hints (``dist.hint``: expert queues on "model" and capacity
+on "data"), which leave plain tensors as they are.
 
 Determinism: ``jax.lax.top_k`` returns the lower index first among equal
 probabilities; the port takes a stable descending sort, which does the
@@ -24,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal
 
@@ -97,10 +99,16 @@ def moe_block(p: Params, cfg: ModelConfig, x: Tensor,
 
 
 def _expert_ffn(p: Params, xe: Tensor) -> Tensor:
-    """xe: (E, C, D) -> (E, C, D) via per-expert SwiGLU."""
+    """xe: (E, C, D) -> (E, C, D) via per-expert SwiGLU, the expert queues
+    hinted onto (E -> "model", C -> "data") so the expert matmuls run
+    sharded."""
+    xe = dist.hint(xe, "model", "data", None)
     g = F.silu(torch.bmm(xe, p["wg"].to(xe.dtype)))
     u = torch.bmm(xe, p["wu"].to(xe.dtype))
-    return torch.bmm(g * u, p["wd"].to(xe.dtype))
+    g = dist.hint(g, "model", "data", None)
+    u = dist.hint(u, "model", "data", None)
+    out = torch.bmm(g * u, p["wd"].to(xe.dtype))
+    return dist.hint(out, "model", "data", None)
 
 
 def _dispatch_onehot(p: Params, cfg: ModelConfig, xt: Tensor,

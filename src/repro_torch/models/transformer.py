@@ -54,6 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DTYPES, DeviceLike, resolve_device
+from repro_torch.models import dist
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -313,10 +314,17 @@ def _stack(cfg: ModelConfig, params: Params, x: Tensor,
                 h = _shared_attn(params["shared"], cfg, h, x0, positions,
                                  inv_freq)
         return h, aux
+    # sequence-parallel residual stream: the layer boundary (what remat
+    # saves) seq-sharded over "model", only with batch-parallel attention
+    seq_parallel_carry = (
+        cfg.attn_param_replication and dist.axis_size("model") > 1
+        and cfg.n_kv_heads % dist.axis_size("model") != 0)
     h = x
     for i, bp in enumerate(blocks):
         h, a = _run(cfg, _dense_block, bp, cfg, h, positions, inv_freq,
                     bool(is_local[i]))
+        if seq_parallel_carry:
+            h = dist.hint(h, None, "model", None)
         aux = aux + a
     return h, aux
 

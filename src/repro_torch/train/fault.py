@@ -5,12 +5,13 @@ Counterpart of ``repro/train/fault.py``:
 * restart: ``launch/train.py`` checkpoints asynchronously every N steps
   (``AsyncCheckpointer``); on a step failure :func:`run_with_failures`
   restores the latest checkpoint (exact restore) and replays from there;
+* elastic re-mesh: checkpoints are mesh-agnostic (per-leaf bitplanes and
+  the tree's paths), so :func:`elastic_restore` places the same state on
+  any ``DeviceMesh``: scaling a job is a restore with other placements, no
+  format conversion;
 * stragglers: :class:`StragglerPolicy` implements bounded-staleness
   dispatch — a shard that misses the deadline contributes nothing this
   step.
-
-``elastic_restore`` (a checkpoint placed onto another device mesh) waits
-for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -21,9 +22,31 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 
 from repro_torch.train.checkpoint import restore_checkpoint
-from repro_torch.train.pytree import tree_leaves, tree_unflatten_like
+from repro_torch.train.pytree import tree_leaves, tree_map, \
+    tree_unflatten_like
+from repro_torch.train.sharding import placements
 
 Pytree = Any
+
+
+def elastic_restore(path: str, mesh, pspecs: Pytree, tau_rel: float = 0.0,
+                    executor=None):
+    """Restore a checkpoint onto an arbitrary mesh (elastic scaling):
+    ``restore_checkpoint`` on the mesh's device type (on CUDA its decode is
+    B2), then each leaf a ``DTensor`` with the placements its spec in
+    ``pspecs`` names.  Every rank restores the whole tree and keeps its own
+    shards, so placing moves nothing between ranks.  Returns (tree,
+    report)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    params, report = restore_checkpoint(path, tau_rel=tau_rel,
+                                        device=mesh.device_type,
+                                        executor=executor)
+    placed = tree_map(
+        lambda ps, x: distribute_tensor(x, mesh, placements(ps, mesh),
+                                        src_data_rank=None),
+        pspecs, params)
+    return placed, report
 
 
 @dataclass

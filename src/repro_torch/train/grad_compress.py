@@ -3,8 +3,8 @@
 Counterpart of ``repro/train/grad_compress.py``: per leaf, gradients are
 quantised to the top ``k_planes`` bitplanes of a shared power-of-two
 exponent (int32 codes), dequantised, and the residual fed back into the
-next step's gradient.  ``compressed_psum`` (the data-parallel mean over a
-process group) waits for the multi-device slice.
+next step's gradient.  ``compressed_psum`` is the data-parallel mean over
+a mesh dim's process group that sums the codes instead of float32.
 
 The shared exponent is ``ceil(log2(max(amax, 1e-30)))`` and the scale
 ``exp2(e)``, in float32, which jax lowers to ``log(x) / log(2)`` and
@@ -15,9 +15,27 @@ ceiling.  The port computes neither: both are finite tables of the
 reference's own values (``_E_EDGE_BITS``, ``_SCALE_BITS``), so codes,
 scale and feedback equal the reference's for every amax, on any device.
 
-Unlike the reference, :func:`compress_decompress` writes the new residuals
-into the feedback tensors it is given and returns them (one fp32 copy of
-the model's size saved at every step).
+Unlike the reference, :func:`compress_decompress` and
+:func:`compressed_psum` write the new residuals into the feedback tensors
+they are given and return them (one fp32 copy of the model's size saved at
+every step).
+
+:func:`compressed_psum` follows the reference's code, not its docstring:
+the wire is ``sum_safe_int_dtype(k, n_ranks or 64)``, so k = 4 over 16
+ranks rides int16 (9 bits), not int8.  Neither gloo nor NCCL sums 16-bit
+integers, so an int16 wire is lane-packed: each code biased by 2^k into
+[0, 2^(k+1)], the low lane's, with a signed code in the high lane, two
+codes to an int32 word.  Whenever ``n * 2^(k+1) < 2^16`` (every group of up
+to ``n_ranks`` ranks) the lanes sum with no carry between them, so the sum
+is the reference's int16 sum exactly, at 2 bytes a code.  Otherwise (a
+group larger than the wire was chosen for, or a rank whose amax was NaN,
+whose codes may saturate) the codes are widened to int32 on the wire and
+the sum wrapped to int16 after it, as the reference's int16 sum wraps.
+int8 and int32 wires are summed as they are.  The cross-rank amax is the
+reference's on XLA's CPU backend: a rank's NaN amax drops out of the max
+(and a max of NaNs only is -inf, so the exponent is the clamp's), while a
+one-rank group keeps its NaN; a code out of the wire's range saturates and
+a NaN code is 0, as XLA converts.
 """
 from __future__ import annotations
 
@@ -25,6 +43,7 @@ import functools
 import math
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.train.pytree import tree_leaves, tree_map
@@ -138,15 +157,19 @@ def _tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
                  for bits in (_E_EDGE_BITS, _SCALE_BITS))
 
 
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """The reference's scale for a (1,) float32 amax, as a 0-d tensor."""
+    edges, scales = _tables(amax.device)
+    scale = scales[torch.searchsorted(edges, amax)]
+    # a NaN amax: the reference's log, ceil and exp2 carry it to the scale
+    return torch.where(torch.isnan(amax), amax, scale).reshape(())
+
+
 def _quantise(g: torch.Tensor, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """g -> (int32 codes in [-2^k, 2^k], the reference's scale)."""
     g32 = g.to(torch.float32)
-    amax = torch.max(torch.abs(g32)).reshape(1)
-    edges, scales = _tables(g.device)
-    scale = scales[torch.searchsorted(edges, amax)]
-    # a NaN amax: the reference's log, ceil and exp2 carry it to the scale
-    scale = torch.where(torch.isnan(amax), amax, scale).reshape(())
+    scale = _scale_of(torch.max(torch.abs(g32)).reshape(1))
     q = torch.round(g32 / scale * (2.0 ** k)).to(torch.int32)
     return q, scale
 
@@ -202,6 +225,114 @@ def sum_safe_int_dtype(k_planes: int, n_ranks: int) -> torch.dtype:
     if bits <= 15:
         return torch.int16
     return torch.int32
+
+
+def _wire_codes(x: torch.Tensor, wire: torch.dtype) -> torch.Tensor:
+    """``round(x)`` converted to ``wire`` as XLA converts: NaN to 0, values
+    out of range saturated."""
+    info = torch.iinfo(wire)
+    r = torch.round(x)
+    r = torch.where(torch.isnan(r), 0.0, r)
+    if wire != torch.int32:
+        return r.clamp(info.min, info.max).to(wire)
+    # 2^31 - 1 is no float32: clamp below it, then saturate the rest
+    q = r.clamp(info.min, 2147483520.0).to(wire)
+    return torch.where(r >= 2147483648.0, info.max, q)
+
+
+def _pmax(amax: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's cross-rank max of a (1,) float32 amax (a NaN rank
+    drops out), and a (1,) tensor > 0 where any rank's amax was NaN."""
+    import torch.distributed as tdist
+    nan = torch.isnan(amax)
+    both = torch.cat([torch.where(nan, float("-inf"), amax),
+                      nan.to(torch.float32)])
+    tdist.all_reduce(both, op=tdist.ReduceOp.MAX, group=group)
+    return both[:1], both[1:]
+
+
+def _psum_codes(q: torch.Tensor, k: int, n: int, group, nan_rank
+                ) -> Tuple[torch.Tensor, int]:
+    """The sum of every rank's codes, in ``q``'s (wire) dtype, wrapped as
+    the reference's sum wraps; and the bytes of the buffer handed to the
+    all-reduce.  ``nan_rank`` (read only for an int16 wire) says whether a
+    rank's amax was NaN."""
+    import torch.distributed as tdist
+    if q.dtype != torch.int16:
+        out = q.clone()
+        tdist.all_reduce(out, group=group)
+        return out, out.numel() * out.element_size()
+    flat = q.reshape(-1).to(torch.int32)
+    if n << (k + 1) >= 1 << 16 or (nan_rank is not None
+                                   and bool(nan_rank > 0)):
+        tdist.all_reduce(flat, group=group)
+        return flat.to(torch.int16).reshape(q.shape), flat.numel() * 4
+    m = flat.numel()
+    if m % 2:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    half = flat.numel() // 2
+    # low lane: code + 2^k in [0, 2^(k+1)]; high lane: the signed code
+    words = (flat[:half] + (1 << k)) + flat[half:] * 65536
+    tdist.all_reduce(words, group=group)
+    lo = words & 0xFFFF
+    hi = (words - lo) >> 16
+    sums = torch.cat([lo - n * (1 << k), hi])[:m]
+    return sums.to(torch.int16).reshape(q.shape), half * 4
+
+
+def compressed_psum(grads: Pytree, feedback: Pytree, k_planes: int,
+                    axis: str, n_ranks: int = 0) -> Tuple[Pytree, Pytree]:
+    """Data-parallel mean over the mesh dim ``axis`` of the mesh registered
+    with ``models.dist.use_mesh``, moving top-k-bitplane integer codes
+    instead of float32 (the wire is ``sum_safe_int_dtype(k_planes, n_ranks
+    or 64)``); scales synchronise with a scalar max.  Returns (mean,
+    feedback), the feedback tensors updated in place.  The bytes handed to
+    the all-reduces (codes and amax) are left in
+    ``compressed_psum.buffer_bytes``."""
+    from repro_torch.models import dist
+    mesh = dist._CTX["mesh"]
+    if mesh is None:
+        raise RuntimeError("compressed_psum needs a mesh: register one with "
+                           "repro_torch.models.dist.use_mesh(mesh)")
+    return _compressed_mean(grads, feedback, k_planes, n_ranks,
+                            mesh.get_group(axis))
+
+
+compressed_psum.buffer_bytes = 0
+
+
+def _compressed_mean(grads: Pytree, feedback: Pytree, k_planes: int,
+                     n_ranks: int, group) -> Tuple[Pytree, Pytree]:
+    """:func:`compressed_psum` over ``group``; with ``group=None`` its
+    one-process form (the sum is the rank's own codes, n = 1)."""
+    import torch.distributed as tdist
+    n = 1 if group is None else tdist.get_world_size(group)
+    wire = sum_safe_int_dtype(k_planes, n_ranks or 64)
+    compressed_psum.buffer_bytes = 0
+
+    def per_leaf(g, fb):
+        corrected = g.to(torch.float32) + fb
+        amax = torch.max(torch.abs(corrected)).reshape(1)
+        nan_rank = None
+        if n > 1:
+            amax, nan_rank = _pmax(amax, group)
+        scale = _scale_of(amax)
+        q = _wire_codes(corrected / scale * (2.0 ** k_planes), wire)
+        if group is None:
+            q_sum = q
+        else:
+            q_sum, nbytes = _psum_codes(q, k_planes, n, group, nan_rank)
+            compressed_psum.buffer_bytes += nbytes + (8 if n > 1 else 0)
+        step = scale / (2.0 ** k_planes)
+        # XLA makes the reference's division by n a multiply by float32
+        # 1/n (not exact for n = 3); a 0-d tensor keeps that float32 value
+        mean = q_sum.to(torch.float32) * step * torch.tensor(
+            np.float32(1) / np.float32(n), device=g.device)
+        _residual(fb, corrected, q, step)
+        return mean.to(g.dtype)
+
+    with torch.no_grad():
+        return tree_map(per_leaf, grads, feedback), feedback
 
 
 def payload_bytes(grads: Pytree, k_planes: int) -> int:
