@@ -124,6 +124,7 @@ def _qkv(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
          inv_freq: Tensor, shard_cb=None):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = batch_only(x)
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -131,9 +132,12 @@ def _qkv(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    # a DTensor whose heads the model axis does not divide is gathered
+    # before the split into heads (DTensor cannot split a sharded dim
+    # unevenly)
+    q = _whole_heads(q, h).reshape(b, s, h, hd)
+    k = _whole_heads(k, kv).reshape(b, s, kv, hd)
+    v = _whole_heads(v, kv).reshape(b, s, kv, hd)
     if shard_cb is not None:
         # reshard before RoPE: the rotated tensors are float32 pairs, and
         # the reshard would move twice the bytes
@@ -154,11 +158,97 @@ def gqa_scores_mask(q_pos: Tensor, k_pos: Tensor, is_local: bool,
     return causal
 
 
+def batch_only(x: Tensor) -> Tensor:
+    """``x`` (B, ...) as a projection takes or gives it: a DTensor keeps
+    the sharding of its batch dim and is replicated on every other (a
+    partial sum reduced), so that the projection's flattened (B·S) dim is
+    sharded on one part only -- in the backward too, where the gradient
+    of a projection's output takes the layout of its forward value."""
+    return dist.hint_both(x, None, *([dist.REP] * (x.dim() - 1)))
+
+
+def _whole_heads(x: Tensor, heads: int) -> Tensor:
+    """``x`` (B, S, heads·hd), its last dim replicated when it is a
+    DTensor and the "model" axis does not divide ``heads``."""
+    m = dist.axis_size("model")
+    if m > 1 and heads % m:
+        return dist.hint(x, None, None, dist.REP)
+    return x
+
+
 def gqa_attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores as
     an einsum in the input dtype, then widened and divided by sqrt(hd) in
     float64 (the reference trainer's promotion), masked with -1e30,
-    softmax, probs cast back to ``q.dtype``."""
+    softmax, probs cast back to ``q.dtype``.  DTensors go through
+    :func:`_gqa_attend_sharded`."""
+    if dist.is_dtensor(q):
+        return _gqa_attend_sharded(q, k, v, mask)
+    return _gqa_attend(q, k, v, mask)
+
+
+def _gqa_attend_sharded(q: Tensor, k: Tensor, v: Tensor,
+                        mask: Tensor) -> Tensor:
+    """``gqa_attend`` on DTensors, which GSPMD lays out by itself and
+    DTensor cannot: its einsum flattens (batch, kv head) and (group, query
+    row) into one dim each, and a flattened dim sharded on two of its parts
+    has no sharding propagation.  So each mesh dim gets one part:
+
+    * one that shards q's batch shards q, k, v (and a 3-D mask) on batch;
+    * else one that divides the kv heads (with the mesh dims before it
+      that split them) shards q, k and v on heads;
+    * else one that divides the query rows so shards q and the mask on
+      rows, k and v replicated (context parallelism);
+    * else (a decode step's one row) q is replicated on it and k, v keep
+      their layout (a cache sharded on its slots): the plain einsum then
+      propagates, the softmax gathering the scores.
+
+    Without the last case every shard's attention is local, and it runs
+    as ``_gqa_attend`` on the local tensors (the reference's
+    ``shard_map``); the output is laid out as q."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    mask_rows = mask.dim() - 2
+    if not isinstance(mask, DTensor):
+        mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    qp, kp, mp = [], [], []
+    local = True
+    heads, rows = 1, 1      # the mesh sizes already splitting heads, rows
+    for i, n in enumerate(mesh.shape):
+        cur = q.placements[i]
+        if n == 1:
+            part = (Replicate(),) * 3
+        elif cur.is_shard(0):
+            part = (Shard(0), Shard(0),
+                    Shard(0) if mask.dim() == 3 else Replicate())
+        elif h % (heads * n) == 0 and kv % (heads * n) == 0:
+            heads *= n
+            part = (Shard(2), Shard(2), Replicate())
+        elif s % (rows * n) == 0:
+            rows *= n
+            part = (Shard(1), Replicate(), Shard(mask_rows))
+        else:
+            local = False
+            part = (Replicate(), Shard(1), Shard(mask.dim() - 1))
+        qp.append(part[0])
+        kp.append(part[1])
+        mp.append(part[2])
+    q = q.redistribute(mesh, qp)
+    k = k.redistribute(mesh, kp)
+    v = v.redistribute(mesh, kp)
+    mask = mask.redistribute(mesh, mp)
+    if not local:
+        return _gqa_attend(q, k, v, mask)
+    out = _gqa_attend(q.to_local(), k.to_local(), v.to_local(),
+                      mask.to_local())
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _gqa_attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -198,7 +288,7 @@ def gqa_attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                           gqa_scores_mask(q_pos, k_pos, is_local, window))
     pad = (-s) % chunk
     if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q = dist.along(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), q, 1)
         q_pos = F.pad(q_pos, (0, pad), value=0)
     outs = []
     for c in range((s + pad) // chunk):
@@ -234,6 +324,10 @@ def attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
             v = dist.hint(v, None, None, dist.REP, dist.REP)
         return q, k, v
 
+    if mode == "batch":
+        # the projections run batch-parallel too: the layer boundary may
+        # come sequence-sharded
+        x = dist.hint(x, _full_batch_axes(b), dist.REP, dist.REP)
     q, k, v = _qkv(p, cfg, x, positions, inv_freq,
                    shard_cb=shard_cb if mode else None)
     pos1d = positions[0] if positions.dim() > 1 else positions
@@ -242,7 +336,8 @@ def attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     if mode == "batch":
         out = dist.hint(out, _full_batch_axes(b), dist.REP, dist.REP,
                         dist.REP)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    out = batch_only(out.reshape(b, s, -1))
+    return batch_only(out @ p["wo"].to(x.dtype))
 
 
 def _full_batch_axes(b: int):
@@ -286,7 +381,7 @@ def _attend_full_mask_chunked(q: Tensor, k: Tensor, v: Tensor,
                                               device=q.device))
     pad = (-s) % chunk
     if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q = dist.along(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), q, 1)
     mask = torch.ones((chunk, k.shape[1]), dtype=torch.bool, device=q.device)
     outs = [gqa_attend(q[:, c * chunk:(c + 1) * chunk], k, v, mask)
             for c in range((s + pad) // chunk)]
@@ -299,7 +394,8 @@ def attention_bidir(p: Params, cfg: ModelConfig, x: Tensor,
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions, inv_freq)
     out = _attend_full_mask_chunked(q, k, v)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    out = batch_only(out.reshape(b, s, -1))
+    return batch_only(out @ p["wo"].to(x.dtype))
 
 
 def cross_attention(p: Params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
@@ -310,11 +406,13 @@ def cross_attention(p: Params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
     b, s, _ = x.shape
     t = enc_out.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x, enc_out = batch_only(x), batch_only(enc_out)
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
     k = (enc_out @ p["wk"].to(x.dtype)).reshape(b, t, kv, hd)
     v = (enc_out @ p["wv"].to(x.dtype)).reshape(b, t, kv, hd)
     out = _attend_full_mask_chunked(q, k, v)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    out = batch_only(out.reshape(b, s, -1))
+    return batch_only(out @ p["wo"].to(x.dtype))
 
 
 # float32 1/127: XLA rewrites the reference's division of the float32-widened
@@ -346,6 +444,42 @@ def _quantise_kv(k: Tensor) -> Tuple[Tensor, Tensor]:
     return torch.clamp(codes, -128, 127).to(torch.int8), s
 
 
+def _write_slot(cache: Tensor, slot: Tensor, new: Tensor) -> None:
+    """``cache.index_copy_(1, slot, new)``: ``new`` (B, 1, ...) written at
+    slot ``slot`` (a (1,) int64 tensor) of ``cache`` (B, T, ...), in place.
+    A DTensor cache is written shard by shard: ``new`` takes the cache's
+    layout on every other dim, and a shard of the slots (dim 1) writes
+    the slot only where it holds it, found on the device."""
+    if not dist.is_dtensor(cache):
+        cache.index_copy_(1, slot, new)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cache.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in cache.placements])
+    if isinstance(slot, DTensor):
+        slot = slot.full_tensor()
+    local, rows = cache.to_local(), new.to_local()
+    n_local = local.shape[1]
+    if n_local == cache.shape[1]:
+        local.index_copy_(1, slot, rows)
+        return
+    coord = mesh.get_coordinate()
+    first = 0
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            first = first * mesh.shape[i] + coord[i]
+    at = slot - first * n_local
+    held = (at >= 0) & (at < n_local)
+    at = at.clamp(0, n_local - 1)
+    keep = local.index_select(1, at)
+    held = held.reshape((1, 1) + (1,) * (rows.dim() - 2))
+    local.index_copy_(1, at, torch.where(held, rows, keep))
+
+
 def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
                      cache_k: Tensor, cache_v: Tensor, pos: Tensor,
                      inv_freq: Tensor, is_local: bool,
@@ -367,21 +501,22 @@ def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
         k_s, v_s = scales
         k_q, ks_new = _quantise_kv(k)
         v_q, vs_new = _quantise_kv(v)
-        cache_k.index_copy_(1, slot, k_q)
-        cache_v.index_copy_(1, slot, v_q)
-        k_s.index_copy_(1, slot, ks_new)
-        v_s.index_copy_(1, slot, vs_new)
+        _write_slot(cache_k, slot, k_q)
+        _write_slot(cache_v, slot, v_q)
+        _write_slot(k_s, slot, ks_new)
+        _write_slot(v_s, slot, vs_new)
         kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
         vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
     else:
-        cache_k.index_copy_(1, slot, k)
-        cache_v.index_copy_(1, slot, v)
+        _write_slot(cache_k, slot, k)
+        _write_slot(cache_v, slot, v)
         kf, vf = cache_k, cache_v
     k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
     mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
                            cfg.local_window)
     out = gqa_attend(q, kf, vf, mask)
-    return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+    out = batch_only(out.reshape(b, 1, -1))
+    return batch_only(out @ p["wo"].to(x.dtype))
 
 
 # -------------------------------------------------------------------- MLP --
@@ -399,13 +534,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
 
 
 def mlp(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    x = batch_only(x)
     if cfg.act == "swiglu":
         g = F.silu(x @ p["wg"].to(x.dtype))
         u = x @ p["wu"].to(x.dtype)
-        return (g * u) @ p["wd"].to(x.dtype)
+        return batch_only((g * u) @ p["wd"].to(x.dtype))
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
-    return h @ p["w2"].to(x.dtype)
+    return batch_only(h @ p["w2"].to(x.dtype))
 
 
 # ------------------------------------------------------------- Embeddings --
@@ -416,12 +552,17 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig,
 
 
 def embed(p: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return p["table"].to(_dt(cfg))[tokens]
+    return dist.take_rows(p["table"].to(_dt(cfg)), tokens)
 
 
 def unembed(p: Params, head: Optional[Tensor], cfg: ModelConfig,
             x: Tensor) -> Tensor:
+    x = batch_only(x)
     if cfg.tied_embeddings or head is None:
-        return x @ p["table"].to(x.dtype).T
-    return x @ head.to(x.dtype)
+        logits = x @ p["table"].to(x.dtype).T
+    else:
+        logits = x @ head.to(x.dtype)
+    # a DTensor's gradient comes back with only its batch and vocabulary
+    # sharded, as the product's backward flattens (B·S)
+    return dist.hint_both(logits, None, dist.REP, None)
 

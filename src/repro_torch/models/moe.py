@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal
+from repro_torch.models.layers import _normal, batch_only
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -48,6 +48,15 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
         p["shared_wu"] = _normal(gen, (d, fs), cfg, device) * s
         p["shared_wd"] = _normal(gen, (fs, d), cfg, device) * (fs ** -0.5)
     return p
+
+
+def _one_hot(idx: Tensor, n: int) -> Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a comparison on the device:
+    ``F.one_hot`` reads the indices' range back to the host to check it,
+    a sync each call, which a traced step cannot make."""
+    return (idx[..., None] == torch.arange(n, dtype=idx.dtype,
+                                           device=idx.device)).to(
+        torch.int64)
 
 
 def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -72,7 +81,7 @@ def route(p: Params, cfg: ModelConfig, xt: Tensor
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
     # load-balancing aux loss (Switch): E * Σ_e f_e · p_e
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(gate_idx[:, 0], cfg.n_experts).to(
+    ce = torch.mean(_one_hot(gate_idx[:, 0], cfg.n_experts).to(
         torch.float32), dim=0)
     aux = float(cfg.n_experts) * torch.sum(me * ce)
     return gate_vals, gate_idx, aux
@@ -82,7 +91,7 @@ def moe_block(p: Params, cfg: ModelConfig, x: Tensor,
               dispatch: str = "scatter") -> Tuple[Tensor, Tensor]:
     """x: (B, S, D) -> (out, aux_loss). Dispatch: scatter | onehot | sort."""
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
+    xt = batch_only(x).reshape(b * s, d)
     gate_vals, gate_idx, aux = route(p, cfg, xt)
     cap = _capacity(cfg, b * s)
     if dispatch == "onehot":
@@ -95,7 +104,7 @@ def moe_block(p: Params, cfg: ModelConfig, x: Tensor,
         g = F.silu(xt @ p["shared_wg"].to(xt.dtype))
         u = xt @ p["shared_wu"].to(xt.dtype)
         out = out + (g * u) @ p["shared_wd"].to(xt.dtype)
-    return out.reshape(b, s, d), aux
+    return batch_only(out.reshape(b, s, d)), aux
 
 
 def _expert_ffn(p: Params, xe: Tensor) -> Tensor:
@@ -117,13 +126,13 @@ def _dispatch_onehot(p: Params, cfg: ModelConfig, xt: Tensor,
     tensors, then einsums."""
     n, _ = xt.shape
     e = cfg.n_experts
-    expert_onehot = F.one_hot(gate_idx, e).to(torch.float32)     # (N,k,E)
+    expert_onehot = _one_hot(gate_idx, e).to(torch.float32)      # (N,k,E)
     # position of each (token, slot) within its expert queue
     pos_in_expert = torch.cumsum(expert_onehot.reshape(n * cfg.top_k, e),
                                  dim=0).reshape(n, cfg.top_k, e) - 1.0
     keep = (pos_in_expert < cap) & (expert_onehot > 0)
     pos_clipped = torch.clamp(pos_in_expert, 0, cap - 1).to(torch.int64)
-    cap_onehot = F.one_hot(pos_clipped, cap).to(torch.float32)   # (N,k,E,C)
+    cap_onehot = _one_hot(pos_clipped, cap).to(torch.float32)    # (N,k,E,C)
     kept = expert_onehot * keep.to(torch.float32)
     dispatch = torch.einsum("nke,nkec->nec", kept, cap_onehot)   # (N,E,C)
     combine = torch.einsum("nk,nke,nkec->nec",
@@ -142,16 +151,18 @@ def _dispatch_scatter(p: Params, cfg: ModelConfig, xt: Tensor,
     n, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     flat_expert = gate_idx.reshape(-1)                        # (N*k,)
-    onehot = F.one_hot(flat_expert, e)                        # (N*k, E)
+    onehot = _one_hot(flat_expert, e)                         # (N*k, E)
     pos = torch.cumsum(onehot, dim=0) - onehot                # exclusive
     pos_in_e = torch.gather(pos, 1, flat_expert[:, None])[:, 0]
     keep = pos_in_e < cap
     slot = torch.where(keep, flat_expert * cap + pos_in_e, e * cap)
     xt_rep = torch.repeat_interleave(xt, k, dim=0) if k > 1 else xt
-    xq = torch.zeros((e * cap + 1, d), dtype=xt.dtype,
-                     device=xt.device).index_put((slot,), xt_rep)
-    ye = _expert_ffn(p, xq[:-1].reshape(e, cap, d)).reshape(e * cap, d)
-    gathered = ye[torch.clamp_max(slot, e * cap - 1)]         # (N·k, D)
+    xq = dist.put_rows(e * cap + 1, slot, xt_rep)
+    # the gather back reads any expert's rows: a DTensor's expert space
+    # is gathered first (DTensor cannot index a dim sharded on two axes)
+    ye = dist.hint(_expert_ffn(p, xq[:-1].reshape(e, cap, d)), dist.REP,
+                   dist.REP, None).reshape(e * cap, d)
+    gathered = dist.take_rows(ye, torch.clamp_max(slot, e * cap - 1))
     contrib = torch.where(keep[:, None], gathered, 0.0) \
         * gate_vals.reshape(-1)[:, None].to(xt.dtype)
     if k == 1:
@@ -184,11 +195,12 @@ def _dispatch_sort(p: Params, cfg: ModelConfig, xt: Tensor,
     pos = idx - seg_start
     keep = pos < cap
     slot = torch.where(keep, sorted_expert * cap + pos, e * cap)  # drop -> pad
-    xq = torch.zeros((e * cap + 1, d), dtype=xt.dtype,
-                     device=dev).index_put((slot,), xt[sorted_token])
-    ye = _expert_ffn(p, xq[:-1].reshape(e, cap, d)).reshape(e * cap, d)
+    xq = dist.put_rows(e * cap + 1, slot, xt[sorted_token])
+    ye = dist.hint(_expert_ffn(p, xq[:-1].reshape(e, cap, d)), dist.REP,
+                   dist.REP, None).reshape(e * cap, d)
     contrib = torch.where(keep[:, None],
-                          ye[torch.clamp_max(slot, e * cap - 1)]
+                          dist.take_rows(ye, torch.clamp_max(slot,
+                                                             e * cap - 1))
                           * sorted_gate[:, None].to(xt.dtype), 0.0)
     return torch.zeros((n, d), dtype=xt.dtype, device=dev).index_add(
         0, sorted_token, contrib)

@@ -24,8 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal, _pdt, rmsnorm
+from repro_torch.models.layers import _normal, _pdt, batch_only, rmsnorm
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -178,7 +179,8 @@ def _ssd_chunked(cfg: ModelConfig, xh: Tensor, dt: Tensor, a: Tensor,
         xcb, dtcb, bcb, ccb = xh[:, rows], dt[:, rows], bmat[:, rows], \
             cmat[:, rows]
         ldec = dtcb * a[None, None, :]                       # (B,Q,H)
-        cum = torch.cumsum(ldec, dim=1)                      # inclusive
+        # inclusive, shard by shard on a DTensor
+        cum = dist.along(lambda t: torch.cumsum(t, dim=1), ldec, 1)
         li = cum[:, :, None, :]                              # (B,Q,1,H)
         lj = cum[:, None, :, :]                              # (B,1,Q,H)
         # double where: keep exp() finite on the masked branch, or its inf
@@ -210,6 +212,7 @@ def _ssd_chunked(cfg: ModelConfig, xh: Tensor, dt: Tensor, a: Tensor,
 
 def ssd_block(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     """Full Mamba2 block (training): x (B,S,D) -> (B,S,D)."""
+    x = batch_only(x)
     proj = x @ p["in_proj"].to(x.dtype)
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)
@@ -228,7 +231,7 @@ def ssd_block(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     y = y + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b_, s_, di)
     y = rmsnorm({"scale": p["norm_scale"]}, y * F.silu(z))
-    return y @ p["out_proj"].to(x.dtype)
+    return batch_only(y) @ p["out_proj"].to(x.dtype)
 
 
 def ssd_decode(p: Params, cfg: ModelConfig, x: Tensor, conv_state: Tensor,
@@ -237,7 +240,7 @@ def ssd_decode(p: Params, cfg: ModelConfig, x: Tensor, conv_state: Tensor,
     ssm_state (B,H,N,P).  Returns (y (B,1,D), new conv state, new SSM
     state), in the reference's dtypes: dt, its softplus and the decay in
     float32, the state update in the state's and the activations' dtype."""
-    proj = x @ p["in_proj"].to(x.dtype)
+    proj = batch_only(x) @ p["in_proj"].to(x.dtype)
     z, xc, bmat, cmat, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)
     conv_out, new_conv = _conv1d(cfg, p["conv_w"], p["conv_b"], conv_in,
@@ -258,8 +261,8 @@ def ssd_decode(p: Params, cfg: ModelConfig, x: Tensor, conv_state: Tensor,
     new_state = ssm_state * dec[..., None, None].to(ssm_state.dtype) \
         + (dt[..., None, None].to(xh.dtype)
            * bh[..., :, None] * xh[..., None, :])            # (B,H,N,P)
-    y = torch.einsum("bhn,bhnp->bhp", ch, new_state)
+    y = dist.batch_einsum("bhn,bhnp->bhp", ch, new_state)
     y = y + xh * p["d_skip"][None, :, None].to(xh.dtype)
     y = y.reshape(b_, 1, di)
     y = rmsnorm({"scale": p["norm_scale"]}, y * F.silu(z))
-    return y @ p["out_proj"].to(x.dtype), new_conv, new_state
+    return batch_only(y) @ p["out_proj"].to(x.dtype), new_conv, new_state

@@ -272,7 +272,8 @@ def _ssm_block(bp: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 def _shared_attn(sp: Params, cfg: ModelConfig, x: Tensor, x0: Tensor,
                  positions: Tensor, inv_freq: Tensor) -> Tensor:
-    fused = torch.cat([x, x0], dim=-1) @ sp["fuse"].to(x.dtype)
+    fused = L.batch_only(L.batch_only(torch.cat([x, x0], dim=-1))
+                         @ sp["fuse"].to(x.dtype))
     h = fused + L.attention(sp["attn"], cfg, L.rmsnorm(sp["norm1"], fused),
                             positions, inv_freq, False)
     return x + h + L.mlp(sp["mlp"], cfg, L.rmsnorm(sp["norm2"], h))
@@ -334,7 +335,8 @@ def _encoder_stack(cfg: ModelConfig, params: Params, frames: Tensor
     """Bidirectional encoder over precomputed frame embeddings (stub
     frontend): frames (B, T, D)."""
     enc_cfg = cfg.replace(family="dense")
-    x = frames @ params["frame_proj"].to(frames.dtype)
+    x = L.batch_only(L.batch_only(frames)
+                     @ params["frame_proj"].to(frames.dtype))
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(b, t)
@@ -387,7 +389,8 @@ def forward(params: Params, cfg: ModelConfig,
                                  device=tokens.device).expand(b, s)
         h = _decoder_stack_cross(cfg, params, x, enc_out, positions)
     elif cfg.family == "vlm":
-        patches = batch["patches"] @ params["patch_proj"].to(x.dtype)
+        patches = L.batch_only(L.batch_only(batch["patches"])
+                               @ params["patch_proj"].to(x.dtype))
         x = torch.cat([patches, x], dim=1)
         st = x.shape[1]
         positions = torch.arange(st, dtype=torch.int32,
@@ -414,8 +417,11 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
     labels = batch["labels"]
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    idx = labels.clamp_min(0).to(torch.int64)[..., None]
-    gold = torch.gather(logits, -1, idx)[..., 0]
+    idx = labels.clamp_min(0).to(torch.int64).unsqueeze(-1)
+    # on vocabulary-sharded logits the gather is a partial sum over the
+    # vocabulary's shards, reduced here while it is still 3-D
+    gold = dist.hint(dist.gather_last(logits, idx), None, None,
+                     dist.REP).squeeze(-1)
     mask = (labels >= 0).to(torch.float32)
     nll = (logz - gold) * mask
     ce = torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -533,7 +539,8 @@ def decode_step(params: Params, cfg: ModelConfig, state: Dict[str, Tensor],
             h = _ssm_decode_layer(bp, cfg, h, state, i)
             if (i + 1) % period == 0:
                 g = (i + 1) // period - 1
-                fused = torch.cat([h, x0], dim=-1) @ shared["fuse"].to(h.dtype)
+                fused = L.batch_only(torch.cat([h, x0], dim=-1)) \
+                    @ shared["fuse"].to(h.dtype)
                 a = L.attention_decode(
                     shared["attn"], cfg, L.rmsnorm(shared["norm1"], fused),
                     state["k"][g], state["v"][g], pos, inv_freq, False)

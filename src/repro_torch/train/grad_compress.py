@@ -159,7 +159,10 @@ def _tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
     """The reference's scale for a (1,) float32 amax, as a 0-d tensor."""
-    edges, scales = _tables(amax.device)
+    from torch._subclasses.fake_tensor import is_fake
+    # a fake amax (a dry run's trace) gets tables of its own fake mode
+    edges, scales = (_tables.__wrapped__ if is_fake(amax) else _tables)(
+        amax.device)
     scale = scales[torch.searchsorted(edges, amax)]
     # a NaN amax: the reference's log, ceil and exp2 carry it to the scale
     return torch.where(torch.isnan(amax), amax, scale).reshape(())
@@ -251,6 +254,16 @@ def _pmax(amax: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
     return both[:1], both[1:]
 
 
+def _any_nan_rank(nan_rank) -> bool:
+    """Whether ``_pmax`` saw a rank's NaN amax (a host read).  A fake
+    tensor (a dry run's trace, ``launch/grad_sync_dryrun.py``) has no
+    value to read: its trace takes the wire of finite gradients."""
+    if nan_rank is None:
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+    return not is_fake(nan_rank) and bool(nan_rank > 0)
+
+
 def _psum_codes(q: torch.Tensor, k: int, n: int, group, nan_rank
                 ) -> Tuple[torch.Tensor, int]:
     """The sum of every rank's codes, in ``q``'s (wire) dtype, wrapped as
@@ -263,8 +276,7 @@ def _psum_codes(q: torch.Tensor, k: int, n: int, group, nan_rank
         tdist.all_reduce(out, group=group)
         return out, out.numel() * out.element_size()
     flat = q.reshape(-1).to(torch.int32)
-    if n << (k + 1) >= 1 << 16 or (nan_rank is not None
-                                   and bool(nan_rank > 0)):
+    if n << (k + 1) >= 1 << 16 or _any_nan_rank(nan_rank):
         tdist.all_reduce(flat, group=group)
         return flat.to(torch.int16).reshape(q.shape), flat.numel() * 4
     m = flat.numel()
