@@ -1,0 +1,8 @@
+"""idle_pct.decode: the share of the traced window, in percent, in which no
+operation ran on the device (the union of the device's operations)."""
+
+
+def read(view):
+    if view.kind != "decode":
+        return None
+    return 100.0 * view.idle_share()
