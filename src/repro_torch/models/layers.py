@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.device import DTYPES
 from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
@@ -492,12 +493,15 @@ def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
     codes, and their float32 scales into ``scales`` = (k_scale, v_scale),
     each (B,T,K)) are written into the caches in place at slot
     ``min(pos, T - 1)``.  The int8 caches are dequantised as
-    ``codes.to(dtype) * scales.to(dtype)``, as the reference does."""
+    ``codes.to(dtype) * scales.to(dtype)``, as the reference does.  The
+    ``repro_torch.attend`` span runs from the dequantise through the
+    attention's output, after the cache write and before ``wo``."""
     b, t = x.shape[0], cache_k.shape[1]
     positions = pos.expand(b, 1)
     q, k, v = _qkv(p, cfg, x, positions, inv_freq)
     slot = torch.clamp(pos, max=t - 1).to(torch.int64).reshape(1)
-    if cfg.kv_cache_dtype == "int8":
+    q8 = cfg.kv_cache_dtype == "int8"
+    if q8:
         k_s, v_s = scales
         k_q, ks_new = _quantise_kv(k)
         v_q, vs_new = _quantise_kv(v)
@@ -505,16 +509,20 @@ def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
         _write_slot(cache_v, slot, v_q)
         _write_slot(k_s, slot, ks_new)
         _write_slot(v_s, slot, vs_new)
-        kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
-        vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
     else:
         _write_slot(cache_k, slot, k)
         _write_slot(cache_v, slot, v)
-        kf, vf = cache_k, cache_v
-    k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
-    mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
-                           cfg.local_window)
-    out = gqa_attend(q, kf, vf, mask)
+    with spans.span("attend", B=b, T=t, H=q.shape[2], K=cache_k.shape[2],
+                    hd=q.shape[3], cache=cache_k.dtype, pos=pos):
+        if q8:
+            kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
+            vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
+        else:
+            kf, vf = cache_k, cache_v
+        k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
+        mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
+                               cfg.local_window)
+        out = gqa_attend(q, kf, vf, mask)
     out = batch_only(out.reshape(b, 1, -1))
     return batch_only(out @ p["wo"].to(x.dtype))
 

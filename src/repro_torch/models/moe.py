@@ -9,7 +9,8 @@ scatter-add back into token space).  Expert weights are stacked (E, D, F);
 a shared expert (Llama-4 style) adds to the routed output when
 ``cfg.n_shared_experts`` is set.  ``_expert_ffn`` carries the reference's
 four sharding hints (``dist.hint``: expert queues on "model" and capacity
-on "data"), which leave plain tensors as they are.
+on "data"), which leave plain tensors as they are, and the
+``repro_torch.experts`` span (``repro_torch.spans``).
 
 Determinism: ``jax.lax.top_k`` returns the lower index first among equal
 probabilities; the port takes a stable descending sort, which does the
@@ -25,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal, batch_only
@@ -107,17 +109,25 @@ def moe_block(p: Params, cfg: ModelConfig, x: Tensor,
     return batch_only(out.reshape(b, s, d)), aux
 
 
-def _expert_ffn(p: Params, xe: Tensor) -> Tensor:
+def _expert_ffn(p: Params, xe: Tensor, kept: Tensor, expert: Tensor
+                ) -> Tensor:
     """xe: (E, C, D) -> (E, C, D) via per-expert SwiGLU, the expert queues
     hinted onto (E -> "model", C -> "data") so the expert matmuls run
-    sharded."""
-    xe = dist.hint(xe, "model", "data", None)
-    g = F.silu(torch.bmm(xe, p["wg"].to(xe.dtype)))
-    u = torch.bmm(xe, p["wu"].to(xe.dtype))
-    g = dist.hint(g, "model", "data", None)
-    u = dist.hint(u, "model", "data", None)
-    out = torch.bmm(g * u, p["wd"].to(xe.dtype))
-    return dist.hint(out, "model", "data", None)
+    sharded.  ``kept`` (the dispatch's mask of the (token, slot) pairs its
+    queues hold, with a trailing expert dim in the onehot dispatch) and
+    ``expert`` (each pair's expert) are read by the
+    ``repro_torch.experts`` span alone."""
+    e, c, d = xe.shape
+    with spans.span("experts", E=e, C=c, d=d, d_ff=p["wg"].shape[-1],
+                    dtype=xe.dtype, weights=p["wg"].dtype, kept=kept,
+                    expert=expert):
+        xe = dist.hint(xe, "model", "data", None)
+        g = F.silu(torch.bmm(xe, p["wg"].to(xe.dtype)))
+        u = torch.bmm(xe, p["wu"].to(xe.dtype))
+        g = dist.hint(g, "model", "data", None)
+        u = dist.hint(u, "model", "data", None)
+        out = torch.bmm(g * u, p["wd"].to(xe.dtype))
+        return dist.hint(out, "model", "data", None)
 
 
 def _dispatch_onehot(p: Params, cfg: ModelConfig, xt: Tensor,
@@ -138,7 +148,7 @@ def _dispatch_onehot(p: Params, cfg: ModelConfig, xt: Tensor,
     combine = torch.einsum("nk,nke,nkec->nec",
                            gate_vals.to(torch.float32), kept, cap_onehot)
     xe = torch.einsum("nec,nd->ecd", dispatch.to(xt.dtype), xt)
-    ye = _expert_ffn(p, xe)
+    ye = _expert_ffn(p, xe, keep, gate_idx)
     return torch.einsum("nec,ecd->nd", combine.to(xt.dtype), ye)
 
 
@@ -160,8 +170,8 @@ def _dispatch_scatter(p: Params, cfg: ModelConfig, xt: Tensor,
     xq = dist.put_rows(e * cap + 1, slot, xt_rep)
     # the gather back reads any expert's rows: a DTensor's expert space
     # is gathered first (DTensor cannot index a dim sharded on two axes)
-    ye = dist.hint(_expert_ffn(p, xq[:-1].reshape(e, cap, d)), dist.REP,
-                   dist.REP, None).reshape(e * cap, d)
+    ye = _expert_ffn(p, xq[:-1].reshape(e, cap, d), keep, flat_expert)
+    ye = dist.hint(ye, dist.REP, dist.REP, None).reshape(e * cap, d)
     gathered = dist.take_rows(ye, torch.clamp_max(slot, e * cap - 1))
     contrib = torch.where(keep[:, None], gathered, 0.0) \
         * gate_vals.reshape(-1)[:, None].to(xt.dtype)
@@ -196,8 +206,8 @@ def _dispatch_sort(p: Params, cfg: ModelConfig, xt: Tensor,
     keep = pos < cap
     slot = torch.where(keep, sorted_expert * cap + pos, e * cap)  # drop -> pad
     xq = dist.put_rows(e * cap + 1, slot, xt[sorted_token])
-    ye = dist.hint(_expert_ffn(p, xq[:-1].reshape(e, cap, d)), dist.REP,
-                   dist.REP, None).reshape(e * cap, d)
+    ye = _expert_ffn(p, xq[:-1].reshape(e, cap, d), keep, sorted_expert)
+    ye = dist.hint(ye, dist.REP, dist.REP, None).reshape(e * cap, d)
     contrib = torch.where(keep[:, None],
                           dist.take_rows(ye, torch.clamp_max(slot,
                                                              e * cap - 1))

@@ -18,7 +18,9 @@ scale and feedback equal the reference's for every amax, on any device.
 Unlike the reference, :func:`compress_decompress` and
 :func:`compressed_psum` write the new residuals into the feedback tensors
 they are given and return them (one fp32 copy of the model's size saved at
-every step).
+every step).  Each call of :func:`compress_decompress` is one
+``repro_torch.compress`` span (``repro_torch.spans``), recording each
+leaf's size and dtype.
 
 :func:`compressed_psum` follows the reference's code, not its docstring:
 the wire is ``sum_safe_int_dtype(k, n_ranks or 64)``, so k = 4 over 16
@@ -46,6 +48,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.train.pytree import tree_leaves, tree_map
 
 Pytree = Any
@@ -215,7 +218,11 @@ def compress_decompress(grads: Pytree, feedback: Pytree, k_planes: int
         _residual(fb, corrected, q, scale / (2.0 ** k_planes))
         return deq.to(g.dtype)
 
-    with torch.no_grad():
+    def sizes():
+        return [(g.numel(), g.dtype) for g in tree_leaves(grads)]
+
+    with torch.no_grad(), spans.span("compress", k_planes=k_planes,
+                                     leaves=sizes):
         return tree_map(per_leaf, grads, feedback), feedback
 
 

@@ -13,6 +13,10 @@ tensors): at internlm2-1.8b's width the fp32 moments are 15 GB, and a
 second copy of them at every step is what in-place saves.  The returned
 ``OptState`` holds the same tensors; the parameters come back as new
 tensors, as in the reference.
+
+``adamw_update`` is one ``repro_torch.adamw`` span (``repro_torch.spans``)
+a call, recording each leaf's size and the parameter's and the gradient's
+dtypes.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.train.pytree import flatten_with_paths, tree_leaves, \
     tree_map, tree_unflatten_like
 
@@ -71,9 +76,9 @@ def adamw_update(params: Pytree, grads: Pytree, state: OptState,
                  lr: float, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, wd: float = 0.01
                  ) -> Tuple[Pytree, OptState]:
-    step, t = _step(state)
-    c1 = 1.0 - b1 ** t
-    c2 = 1.0 - b2 ** t
+    def sizes():
+        return [(p.numel(), p.dtype, g.dtype) for p, g in
+                zip(tree_leaves(params), tree_leaves(grads))]
 
     def upd(p, g, m, v):
         g32 = g.to(torch.float32)
@@ -83,7 +88,10 @@ def adamw_update(params: Pytree, grads: Pytree, state: OptState,
             + wd * p.to(torch.float32)
         return (p.to(torch.float32) - lr * update).to(p.dtype)
 
-    with torch.no_grad():
+    with torch.no_grad(), spans.span("adamw", leaves=sizes):
+        step, t = _step(state)
+        c1 = 1.0 - b1 ** t
+        c2 = 1.0 - b2 ** t
         new_params = tree_map(upd, params, grads, state.inner["m"],
                               state.inner["v"])
     return new_params, OptState(step=step, inner=state.inner)

@@ -9,6 +9,10 @@ state, token) -> (logits, state)``, the reference's: one
 ``transformer.decode_step``, which runs under ``torch.no_grad()`` and
 updates the decode state in place (the state passed in is consumed).
 
+Each step is a root span (``repro_torch.serve_step``,
+``repro_torch.train_step``; ``repro_torch.spans``), live only under a
+profiler.
+
 Optional hook ``grad_transform``: applied to the gradient tree before
 clipping (bitplane gradient compression with error feedback plugs in
 here, see ``train/grad_compress.py``).
@@ -19,6 +23,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import clip_by_global_norm, make_optimizer
@@ -52,11 +57,13 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
 
     def train_step(params: Pytree, opt_state, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Pytree, Any, Dict[str, torch.Tensor]]:
-        loss, metrics, grads = value_and_grad(cfg, params, batch)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        params, opt_state = opt_update(params, grads, opt_state, lr=lr)
+        b, s = batch["tokens"].shape
+        with spans.span("train_step", batch=b, seq=s):
+            loss, metrics, grads = value_and_grad(cfg, params, batch)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            params, opt_state = opt_update(params, grads, opt_state, lr=lr)
         out = {"loss": loss, "grad_norm": gnorm, **metrics}
         return params, opt_state, out
 
@@ -66,5 +73,6 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
 def make_serve_step(cfg: ModelConfig):
     def serve_step(params: Pytree, state: Dict[str, torch.Tensor],
                    token: torch.Tensor):
-        return T.decode_step(params, cfg, state, token)
+        with spans.span("serve_step", batch=token.shape[0]):
+            return T.decode_step(params, cfg, state, token)
     return serve_step
