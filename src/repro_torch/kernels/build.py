@@ -56,6 +56,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # b, factor table, h, pre, n, post, out, stream
         "thomas_solve": (_P, _P, _I, _LL, _LL, _LL, _P, _P),
     },
+    "decode_attn": {
+        # dtype (0 bf16), hd, group
+        "decode_attn_setup": (_I, _I, _I),
+        # the address of one decode_attn._Params, stream
+        "decode_attn": (_P, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.device import DTYPES
+from repro_torch.kernels import decode_attn
 from repro_torch.models import dist
 from repro_torch.models.config import ModelConfig
 
@@ -493,7 +494,11 @@ def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
     codes, and their float32 scales into ``scales`` = (k_scale, v_scale),
     each (B,T,K)) are written into the caches in place at slot
     ``min(pos, T - 1)``.  The int8 caches are dequantised as
-    ``codes.to(dtype) * scales.to(dtype)``, as the reference does.  The
+    ``codes.to(dtype) * scales.to(dtype)``, as the reference does.  Where
+    ``kernels.decode_attn.admits`` the tensors (on the card, a bf16 cache
+    of a registry configuration's head shape) the attention is the
+    split-KV kernel, which reads the cache in place over the slots the mask
+    admits; everywhere else it is ``gqa_attend``.  The
     ``repro_torch.attend`` span runs from the dequantise through the
     attention's output, after the cache write and before ``wo``."""
     b, t = x.shape[0], cache_k.shape[1]
@@ -514,15 +519,19 @@ def attention_decode(p: Params, cfg: ModelConfig, x: Tensor,
         _write_slot(cache_v, slot, v)
     with spans.span("attend", B=b, T=t, H=q.shape[2], K=cache_k.shape[2],
                     hd=q.shape[3], cache=cache_k.dtype, pos=pos):
-        if q8:
-            kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
-            vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
+        if not q8 and decode_attn.admits(q, cache_k, cache_v):
+            out = decode_attn.decode_attn(q, cache_k, cache_v, pos, is_local,
+                                          cfg.local_window)
         else:
-            kf, vf = cache_k, cache_v
-        k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
-        mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
-                               cfg.local_window)
-        out = gqa_attend(q, kf, vf, mask)
+            if q8:
+                kf = cache_k.to(x.dtype) * k_s[..., None].to(x.dtype)
+                vf = cache_v.to(x.dtype) * v_s[..., None].to(x.dtype)
+            else:
+                kf, vf = cache_k, cache_v
+            k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
+            mask = gqa_scores_mask(pos.reshape(1), k_pos, is_local,
+                                   cfg.local_window)
+            out = gqa_attend(q, kf, vf, mask)
     out = batch_only(out.reshape(b, 1, -1))
     return batch_only(out @ p["wo"].to(x.dtype))
 
